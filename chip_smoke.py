@@ -1,0 +1,546 @@
+"""On-card smoke test of the PyTorch port (mimo_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. device: fails without CUDA; prints the card's name and power limit and
+   the torch / CUDA / triton / nvcc versions;
+2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc;
+3. kernels: each kernel wrapper (the function the main path calls; one
+   call must count one launch) against its plain PyTorch version on the
+   card at the main path's shapes (ragged edges included), max error beside
+   the stated tolerance, and both times;
+4. main path: a small-input agreement check (card, bf16 + kernels, against
+   the CPU fp32 plain path), then a full-width MIMOConfig() generation of a
+   24-frame 512x784 clip with CFG through ``entry.animate.animate``, twice
+   through one Runner; the second run's phase times and kernel launch
+   counts are printed and every count must be > 0;
+5. the last line: {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --calibrate`` runs phases 1-2, then the readings
+that place the limits of the small-input agreement check (sound seeds and
+planted faults), and prints no result line.
+
+Needs no JAX, no OpenCV and no files from outside the repository; weights
+are random, drawn from a seeded torch.Generator.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+STEPS = 4            # DDIM steps of the full-width run
+FRAMES, HEIGHT, WIDTH = 24, 512, 784
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms (CUDA events, after one warm-up)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                atol: float, rtol: float, why: str) -> float:
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    max_err = float(err.max())
+    excess = float((err - (atol + rtol * want.abs())).max())
+    ok = excess <= 0
+    log(f"  {name}: max_abs_err={max_err:.6g} (tolerance |d| <= {atol} + "
+        f"{rtol}*|ref|: {why}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max_abs_err {max_err})")
+    return max_err
+
+
+def phase_device() -> str:
+    log("== phase 1: device")
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        sys.exit(2)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    try:
+        import triton
+        triton_v = triton.__version__
+    except ImportError:
+        triton_v = "not installed"
+    from mimo_tpu_torch.ops import _build
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"],
+                          capture_output=True, text=True, check=True)
+    log(f"python {sys.version.split()[0]} | torch {torch.__version__} | "
+        f"cuda {torch.version.cuda} | triton {triton_v} | nvcc "
+        f"{nvcc.stdout.strip().splitlines()[-1]}")
+    return torch.cuda.get_device_name(0)
+
+
+def phase_build() -> None:
+    log("== phase 2: build")
+    from mimo_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.load_library()
+    secs = _build.build_seconds()
+    log(f"  library {_build.library_path().name}: "
+        f"{'built in %.1f s' % secs if secs is not None else 'cached'} "
+        f"(load {time.perf_counter() - t0:.1f} s)")
+    # ptxas -v: registers and spills of each kernel (mangled names)
+    name = None
+    for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            log(f"  ptxas {name}: {regs}; {spills}")
+            name = None
+
+
+def call_wrapper(wrapper, *args, **kwargs):
+    """Call a kernel wrapper on card tensors; it must launch its kernel
+    exactly once (its count goes up by one) and return the result."""
+    before = wrapper.launches
+    out = wrapper(*args, **kwargs)
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{wrapper.__name__}: launch count went from "
+                             f"{before} to {wrapper.launches} in one call")
+    return out
+
+
+def kernel_entry(name, source, replaces, label, err, run, plain):
+    """Time the wrapper and its plain version; one entry of the JSON line."""
+    ms = cuda_ms(run, 10)
+    plain_ms = cuda_ms(plain, 3)
+    log(f"    time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_kernels():
+    """Each kernel wrapper against its plain version on the card, at the
+    main path's shapes. Returns one entry of measured numbers per case."""
+    log("== phase 3: kernel wrappers vs plain versions (card, main-path "
+        "shapes)")
+    from mimo_tpu_torch.ops import ffn as FF
+    from mimo_tpu_torch.ops import flash_attention as FA
+    from mimo_tpu_torch.ops import groupnorm as GN
+    from mimo_tpu_torch.ops import temporal_attention as TA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    entries = []
+    flash_why = ("bf16 output (8-bit mantissa) and P rounded to bf16 for "
+                 "P.V; reference fp32 on the same bf16 inputs")
+    # (wrapper, heads, d, batch, sq, sk1, sk2): UNet levels 0 and 1 on a
+    # 2-row batch subset, plus ragged query and key edges
+    cases = [
+        (FA.flash_attention_nt, 8, 40, 2, 6272, 6272, 0),
+        (FA.flash_attention_nt, 8, 80, 2, 1568, 1568, 0),
+        (FA.flash_attention_nt, 8, 40, 2, 1100, 1000, 0),
+        (FA.flash_attention_nt_bank, 8, 40, 2, 6272, 6272, 6272),
+        (FA.flash_attention_nt_bank, 8, 80, 2, 1568, 1568, 1568),
+        (FA.flash_attention_nt_bank, 8, 80, 2, 1568, 1568, 777),
+    ]
+    for wrapper, heads, d, b, sq, sk1, sk2 in cases:
+        inner = heads * d
+        # LN-scaled activations through random projections: logits of a
+        # few units, so the softmax is neither flat nor one-hot
+        q = randn(b, sq, inner, scale=2.0)
+        k = randn(b, sk1, inner, scale=2.0)
+        v = randn(b, sk1, inner)
+        bank = (randn(1, sk2, inner, scale=2.0), randn(1, sk2, inner)) \
+            if sk2 else ()
+        args = (q, k, v, *bank, heads)
+        got = call_wrapper(wrapper, *args)
+        torch.cuda.synchronize()
+        want = FA.attention_plain(q, k, v, heads, *bank)
+        label = (f"{wrapper.__name__} d={d} B={b} Sq={sq} Sk={sk1}"
+                 + (f"+bank {sk2}" if sk2 else ""))
+        err = check_close(label, got, want, 2e-2, 2e-2, flash_why)
+        entries.append(kernel_entry(
+            wrapper.__name__, "mimo_tpu_torch/csrc/flash_attention.cu",
+            "mimo_tpu/ops/flash_transposed.py:"
+            + ("403" if sk2 else "222"), label, err,
+            lambda: wrapper(*args),
+            lambda: FA.attention_plain(q, k, v, heads, *bank)))
+
+    # the kernel alone at the full main-path batch (the uncond/cond half)
+    for wrapper, d, s in ((FA.flash_attention_nt, 40, 6272),
+                          (FA.flash_attention_nt_bank, 40, 6272),
+                          (FA.flash_attention_nt, 80, 1568),
+                          (FA.flash_attention_nt_bank, 80, 1568)):
+        q, k, v = (randn(24, s, 8 * d) for _ in range(3))
+        bank = ((randn(1, s, 8 * d), randn(1, s, 8 * d))
+                if wrapper is FA.flash_attention_nt_bank else ())
+        ms = cuda_ms(lambda: wrapper(q, k, v, *bank, 8), 5)
+        sk = s + (s if bank else 0)
+        tflops = 4 * 24 * 8 * s * sk * d / (ms * 1e-3) / 1e12
+        log(f"  {wrapper.__name__} d={d} B=24 S={s}: kernel {ms:.3f} ms "
+            f"({tflops:.1f} TFLOP/s at the unpadded d)")
+
+    gn_why = ("bf16 output rounding (<= 1 ulp = 2^-7 relative) on fp32 "
+              "statistics summed in another order")
+    gn_cases = [
+        # (replaces, n, s, c, groups, eps, row_add, silu)
+        ("mimo_tpu/ops/groupnorm.py:221", 48, 6272, 320, 32, 1e-5, True, True),
+        ("mimo_tpu/ops/groupnorm.py:275", 8, 6272, 512, 32, 1e-6, False, False),
+        ("mimo_tpu/ops/groupnorm.py:298", 8, 401408, 128, 32, 1e-6, False, True),
+    ]
+    for replaces, n, s, c, groups, eps, radd, silu in gn_cases:
+        x = randn(n, s, c, scale=3.0) + 0.5
+        scale = randn(c).float() * 0.5 + 1.0
+        bias = randn(c).float() * 0.5
+        ra = randn(n, c) if radd else None
+        args = (x, scale, bias, groups, eps, silu, ra)
+        got = call_wrapper(GN.group_norm_fused, *args)
+        torch.cuda.synchronize()
+        label = (f"group_norm_fused ({n}, {s}, {c}) G={groups} eps={eps}"
+                 f"{' +row_add' if radd else ''}{' +silu' if silu else ''}")
+        err = check_close(label, got, GN.group_norm_plain(*args), 1e-2, 1e-2,
+                          gn_why)
+        entry = kernel_entry("group_norm_fused",
+                             "mimo_tpu_torch/csrc/groupnorm.cu", replaces,
+                             label, err, lambda: GN.group_norm_fused(*args),
+                             lambda: GN.group_norm_plain(*args))
+        log(f"    {3 * x.numel() * 2 / (entry['ms'] * 1e-3) / 1e9:.0f} GB/s "
+            f"for 2 reads + 1 write")
+        entries.append(entry)
+
+    entries += gemm_chain_cases(FF, TA, randn)
+    return entries
+
+
+def gemm_chain_cases(FF, TA, randn):
+    """The GEMM-chain wrappers (ops/ffn.py) and the temporal attention
+    (ops/temporal_attention.py) against their plain versions: the
+    unfused composition on the same bf16 weights and inputs."""
+    why = ("both sides bf16 with the same rounding points; a product summed "
+           "in another order can flip the rounding of an intermediate, so "
+           "|d| <= 2^-6 max|ref| (two bf16 ulps of the largest value)")
+
+    def lin(k, n, bias=True):
+        p = {"kernel": randn(k, n, scale=k ** -0.5)}
+        if bias:
+            p["bias"] = randn(n, scale=0.1)
+        return p
+
+    def ln(c):
+        return {"scale": randn(c, scale=0.3) + 1.0, "bias": randn(c, scale=0.3)}
+
+    def check(label, got, want):
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            atol = float(w.float().abs().max()) / 64
+            err = max(err, check_close(f"{label}[{i}]" if len(got) > 1
+                                       else label, g, w, atol, 0.0, why))
+        return err
+
+    ffn_src = "mimo_tpu_torch/csrc/gemm.cu"
+    entries = []
+    # (rows, C): UNet level 0 (48 frames x 6272 tokens), level 2, ragged
+    for rows, c in ((48 * 6272, 320), (48 * 392, 1280), (1000, 640)):
+        x = randn(rows, c, scale=2.0) + 0.3
+        ln_p, res = ln(c), randn(rows, c)
+        ff_p = {"proj_in": lin(c, 8 * c), "proj_out": lin(4 * c, c)}
+        attn = {k: lin(c, c, bias=False) for k in ("to_q", "to_k", "to_v")}
+        out = lin(c, c)
+        for wrapper, plain, replaces, args in (
+                (FF.ffn_ln_geglu_fused, FF.ffn_ln_geglu_plain,
+                 "mimo_tpu/ops/ffn.py:161", (x, ln_p, ff_p)),
+                (FF.qkv_ln_fused, FF.qkv_ln_plain,
+                 "mimo_tpu/ops/ffn.py:245", (x, ln_p, attn)),
+                (FF.matmul_bias_residual, FF.matmul_bias_residual_plain,
+                 "mimo_tpu/ops/ffn.py:415", (x, out, res)),
+                (FF.matmul_bias, FF.matmul_bias_plain,
+                 "mimo_tpu/ops/ffn.py:371", (x, out))):
+            got = call_wrapper(wrapper, *args)
+            torch.cuda.synchronize()
+            label = f"{wrapper.__name__} R={rows} C={c}"
+            err = check(label, got, plain(*args))
+            entries.append(kernel_entry(
+                wrapper.__name__, ffn_src, replaces, label, err,
+                lambda: wrapper(*args), lambda: plain(*args)))
+
+    # motion modules: (B=2, F=24, S, C), 8 heads; levels 0, 2 and 3
+    for s, c in ((6272, 320), (392, 1280), (104, 1280)):
+        x = randn(2, 24, s, c, scale=2.0)
+        attn = {k: lin(c, c, bias=False) for k in ("to_q", "to_k", "to_v")}
+        attn["to_out"] = lin(c, c)
+        ln_p, pe = ln(c), randn(24, c, scale=0.5)
+        args = (attn, ln_p, pe, x, 8)
+        got = call_wrapper(TA.temporal_attention_ln, *args)
+        torch.cuda.synchronize()
+        label = f"temporal_attention_ln (2, 24, {s}, {c}) heads=8"
+        err = check(label, got, TA.temporal_attention_plain(*args))
+        entries.append(kernel_entry(
+            "temporal_attention_ln", "mimo_tpu_torch/csrc/temporal_attention.cu",
+            "mimo_tpu/ops/temporal_attention.py:212", label, err,
+            lambda: TA.temporal_attention_ln(*args),
+            lambda: TA.temporal_attention_plain(*args)))
+    return entries
+
+
+def agreement_error(seed: int, fault=None):
+    """Tiny-config generation at 256x256 (level-0 attention over 1024
+    tokens, so the flash kernels run) on the card in bf16 against the CPU
+    fp32 plain path on the same weights and inputs. ``fault`` (a context
+    manager factory) plants a known error in the card run only. Returns
+    (max, mean) absolute error over [0, 1] pixels."""
+    from mimo_tpu_torch import config as C
+    from mimo_tpu_torch.entry.runner import init_random_params
+    from mimo_tpu_torch.pipelines import pose2vid
+    cfg = C.tiny_mimo_config()
+    f, h, w = 4, 256, 256
+    gen = torch.Generator().manual_seed(seed)
+    params = init_random_params(cfg, gen, dtype=torch.float32)
+    # the motion modules' zero-init proj_out would hide them: give weights
+    den = params["denoising_unet"]
+    for blk in den["down"] + den["up"] + [den["mid"]]:
+        for mm in blk["motions"] or []:
+            c = mm["proj_out"]["kernel"].shape[0]
+            mm["proj_out"] = {"kernel": torch.randn(c, c, generator=gen) * 0.1,
+                              "bias": torch.randn(c, generator=gen) * 0.1}
+    rng = np.random.default_rng(seed)
+    ref = rng.uniform(-1, 1, (h, w, 3)).astype(np.float32)
+    pose = rng.uniform(0, 1, (f, h, w, 3)).astype(np.float32)
+    bk = rng.uniform(-1, 1, (f, h, w, 3)).astype(np.float32)
+    clip_px = rng.standard_normal((32, 32, 3)).astype(np.float32)
+    noise = rng.standard_normal((f, h // 8, w // 8, 4)).astype(np.float32)
+    st = pose2vid.Pose2VideoStatic(cfg=cfg, num_frames=f, height=h, width=w,
+                                   num_inference_steps=2, guidance_scale=3.5)
+
+    def run(device, dtype, tree):
+        args = [torch.from_numpy(a).to(device, dtype)
+                for a in (ref, pose, bk, clip_px, noise)]
+        return pose2vid.generate_host_loop(tree, st, *args).float().cpu()
+
+    want = run("cpu", torch.float32, params)
+    cuda_params = _map_tree(params, lambda t: t.to("cuda", torch.bfloat16))
+    if fault is None:
+        got = run("cuda", torch.bfloat16, cuda_params)
+    else:
+        with fault():
+            got = run("cuda", torch.bfloat16, cuda_params)
+    err = (got - want).abs()
+    return float(err.max()), float(err.mean())
+
+
+# The card-vs-CPU limits sit between the sound runs and the planted faults
+# of ``python3 chip_smoke.py --calibrate`` (readings in PERF.md).
+AGREE_MEAN_TOL = 1e-2
+AGREE_MAX_TOL = 0.25
+
+
+def small_input_agreement() -> None:
+    from mimo_tpu_torch.ops import flash_attention as FA
+    before = FA.flash_attention_nt_bank.launches
+    mx, mean = agreement_error(7)
+    if FA.flash_attention_nt_bank.launches == before:
+        raise AssertionError("small-input run did not reach the flash kernel")
+    log(f"  tiny 4x256x256 2-step generation, card bf16 vs CPU fp32: "
+        f"max_abs_err={mx:.4g}, mean_abs_err={mean:.4g} (tolerance mean <= "
+        f"{AGREE_MEAN_TOL}, max <= {AGREE_MAX_TOL} on [0, 1] pixels: between "
+        f"the sound seeds and the planted faults of --calibrate)")
+    if not (mean <= AGREE_MEAN_TOL and mx <= AGREE_MAX_TOL):
+        raise AssertionError("card output disagrees with the CPU reference")
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(v, fn) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def template_frames():
+    """A 24-frame 512x784 sdc-like pose clip and a reference image, drawn in
+    memory (a figure walking across a black frame)."""
+    frames = []
+    for t in range(FRAMES):
+        f = np.zeros((HEIGHT, WIDTH, 3), np.uint8)
+        cx = 250 + 10 * t
+        f[120:420, cx - 45:cx + 45] = (120, 180, 90)      # torso + legs
+        f[60:120, cx - 28:cx + 28] = (200, 120, 80)       # head
+        f[150:170, cx - 110 + 3 * t:cx + 110 - 3 * t] = (80, 90, 200)  # arms
+        frames.append(f)
+    ref = np.full((700, 480, 3), 255, np.uint8)
+    ref[150:620, 170:310] = (30, 60, 160)
+    ref[80:150, 205:275] = (220, 170, 140)
+    return ref, frames
+
+
+def phase_main_path():
+    log("== phase 4: main path")
+    small_input_agreement()
+    from mimo_tpu_torch import config as C
+    from mimo_tpu_torch.entry.animate import animate
+    from mimo_tpu_torch.entry.runner import Runner, init_random_params
+    dev = torch.device("cuda")
+    cfg = C.MIMOConfig()
+    t0 = time.perf_counter()
+    params = init_random_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  full-width MIMOConfig() weights: {n_params / 1e9:.3f} B params "
+        f"(bf16), random init {time.perf_counter() - t0:.1f} s")
+    runner = Runner(cfg=cfg, params=params, device=dev, dtype=torch.bfloat16)
+    ref, frames = template_frames()
+    kw = dict(width=WIDTH, height=HEIGHT, steps=STEPS, cfg_scale=3.5, seed=42)
+    log(f"  animate: {FRAMES} frames {HEIGHT}x{WIDTH}, CFG 3.5, {STEPS} DDIM "
+        f"steps (UNet3D batch {2 * FRAMES} frames of "
+        f"{HEIGHT // 8}x{WIDTH // 8} latents)")
+    t0 = time.perf_counter()
+    animate(runner, ref, frames, **kw)
+    log(f"  run 1 (warm-up): {time.perf_counter() - t0:.2f} s wall")
+
+    counters = kernel_wrappers()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    video = animate(runner, ref, frames, **kw)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    tm = runner.last_timings
+    log(f"  run 2: {wall:.2f} s wall | prepare {tm['prepare']:.1f} ms | "
+        f"mean step {tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms "
+        f"(CUDA events) | peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"  kernel launches in run 2: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the main path never launched {name}")
+    if video.shape != (FRAMES, HEIGHT, WIDTH, 3):
+        raise AssertionError(f"output shape {video.shape}")
+    if not np.isfinite(video).all():
+        raise AssertionError("output has non-finite values")
+    std = float(video.std())
+    log(f"  output {video.shape} finite, min {video.min():.4f} max "
+        f"{video.max():.4f} std {std:.4f}")
+    if std <= 1e-4:
+        raise AssertionError("output is constant")
+    return launches
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the main path (each counts its launches)."""
+    from mimo_tpu_torch.ops import ffn as FF
+    from mimo_tpu_torch.ops import flash_attention as FA
+    from mimo_tpu_torch.ops import groupnorm as GN
+    from mimo_tpu_torch.ops import temporal_attention as TA
+    return (FA.flash_attention_nt, FA.flash_attention_nt_bank,
+            GN.group_norm_fused, FF.ffn_ln_geglu_fused, FF.qkv_ln_fused,
+            FF.matmul_bias_residual, FF.matmul_bias,
+            TA.temporal_attention_ln)
+
+
+def calibrate() -> None:
+    """Readings that place the limits of the small-input agreement check:
+    sound runs over several seeds, then runs with a planted fault in the
+    card path (the bank keys dropped from the banked flash attention, the
+    flash softmax scale off by 25%, the motion modules' PE dropped)."""
+    import contextlib
+    from mimo_tpu_torch.models import unet as U
+    from mimo_tpu_torch.ops import attention as AT
+    from mimo_tpu_torch.ops import flash_attention as FA
+
+    @contextlib.contextmanager
+    def patched(module, name, value):
+        old = getattr(module, name)
+        setattr(module, name, value)
+        try:
+            yield
+        finally:
+            setattr(module, name, old)
+
+    tattn = U.temporal_attention_ln
+    faults = {
+        "bank dropped": lambda: patched(
+            AT, "flash_attention_nt_bank",
+            lambda q, k, v, kb, vb, heads: FA.flash_attention_nt(q, k, v,
+                                                                 heads)),
+        "flash scale x1.25": lambda: patched(FA, "LOG2E", FA.LOG2E * 1.25),
+        "motion PE dropped": lambda: patched(
+            U, "temporal_attention_ln",
+            lambda p, ln_p, pe, x, heads: tattn(p, ln_p, pe * 0, x, heads)),
+    }
+    log("== calibrate: small-input agreement, card bf16 vs CPU fp32")
+    for seed in (7, 8, 9, 10, 11):
+        mx, mean = agreement_error(seed)
+        log(f"  sound seed {seed}: max_abs_err={mx:.4g} mean_abs_err="
+            f"{mean:.4g}")
+    for name, fault in faults.items():
+        mx, mean = agreement_error(7, fault)
+        log(f"  fault '{name}' seed 7: max_abs_err={mx:.4g} mean_abs_err="
+            f"{mean:.4g}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
+
+
+def main() -> None:
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = phase_device()
+    phase_build()
+    if sys.argv[1:] == ["--calibrate"]:
+        calibrate()
+        return
+    entries = phase_kernels()
+    launches = phase_main_path()
+    kernels = []
+    for e in entries:
+        kernels.append({"name": e["name"], "route": e["route"],
+                        "source": e["source"], "replaces": e["replaces"],
+                        "shape": e["shape"], "launches": launches[e["name"]],
+                        "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                        "plain_ms": e["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

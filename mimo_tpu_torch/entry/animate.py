@@ -1,0 +1,97 @@
+"""Character image animation (run_animate.py semantics): sdc-only template,
+white background, global human crop, raw pipeline output.
+
+Counterpart of ``mimo_tpu/entry/animate.py``. ``animate`` takes a template
+directory or the sdc pose frames already in memory (which needs no OpenCV).
+
+CLI: python -m mimo_tpu_torch.entry.animate --ref ref.png --template dir/ \
+        --output out.mp4 [--weights bundle.npz] [--W 784 --H 784 ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+
+from mimo_tpu_torch.config import DTypePolicy, MIMOConfig
+from mimo_tpu_torch.entry.runner import (Runner, init_random_params,
+                                         load_params, prep_reference_image)
+from mimo_tpu_torch.entry.template import load_template
+from mimo_tpu_torch.utils import frames as FU
+from mimo_tpu_torch.utils import video_io as VIO
+
+
+def animate(runner: Runner, ref_img: np.ndarray,
+            template: Union[str, os.PathLike, Sequence[np.ndarray]], *,
+            width: int = 784, height: int = 784, steps: int = 25,
+            cfg_scale: float = 3.5, seed: int = 42,
+            max_frames: int = 150) -> np.ndarray:
+    """Returns the (F, height, width, 3) float video in [0, 1].
+    ``template``: a template directory, or the sdc pose frames as (H, W, 3)
+    uint8 arrays."""
+    if isinstance(template, (str, os.PathLike)):
+        pose_frames = load_template(os.fspath(template),
+                                    max_frames=max_frames).sdc
+    else:
+        pose_frames = list(template)[:max_frames]
+    if not pose_frames:
+        raise ValueError("template has no pose frames")
+    ref = prep_reference_image(ref_img)
+
+    h, w = pose_frames[0].shape[:2]
+    bk_frames = FU.init_bk(len(pose_frames), h, w)
+    pose_frames, bk_frames, _ = FU.crop_human(pose_frames, bk_frames)
+
+    padded_pose, padded_bk = [], []
+    for p, b in zip(pose_frames, bk_frames):
+        padded_pose.append(FU.pad_img(p, (0, 0, 0))[0])
+        padded_bk.append(FU.pad_img(b, (255, 255, 255))[0])
+
+    return runner.generate(ref, padded_pose, padded_bk, width=width,
+                           height=height, steps=steps, cfg_scale=cfg_scale,
+                           seed=seed)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="MIMO character animation "
+                                             "(PyTorch port)")
+    ap.add_argument("--ref", required=True)
+    ap.add_argument("--template", required=True)
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--weights", default=None,
+                    help=".npz bundle from mimo_tpu/weights/convert.py "
+                         "(random init if omitted — smoke-test mode)")
+    ap.add_argument("--W", type=int, default=784)
+    ap.add_argument("--H", type=int, default=784)
+    ap.add_argument("--steps", type=int, default=25)
+    ap.add_argument("--cfg", type=float, default=3.5)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--max-frames", type=int, default=150)
+    args = ap.parse_args(argv)
+
+    # validate inputs before the (slow) model init
+    tpl_probe = load_template(args.template, max_frames=1)
+    ref = VIO.load_image(args.ref)
+
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dtype = DTypePolicy.for_device(device).compute_dtype
+    cfg = MIMOConfig()
+    if args.weights:
+        params = load_params(args.weights, device=device, dtype=dtype)
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_random_params(cfg, gen, dtype=dtype)
+    runner = Runner(cfg=cfg, params=params, device=device, dtype=dtype)
+    video = animate(runner, ref, args.template, width=args.W, height=args.H,
+                    steps=args.steps, cfg_scale=args.cfg, seed=args.seed,
+                    max_frames=args.max_frames)
+    VIO.save_video(video, args.output, fps=tpl_probe.fps)
+    print(f"saved {video.shape[0]} frames to {args.output}")
+
+
+if __name__ == "__main__":
+    main()

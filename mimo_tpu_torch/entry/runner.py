@@ -1,0 +1,122 @@
+"""Host-side runner: weights, reference-image prep, one generation.
+
+Counterpart of ``mimo_tpu/entry/runner.py``: ``init_random_params``,
+``load_params``, ``prep_reference_image`` and ``Runner.generate``. The
+host prepares fixed-size batches once; the device runs
+``pipelines.pose2vid.generate_host_loop``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mimo_tpu_torch.config import MIMOConfig
+from mimo_tpu_torch.models import clip_vision as CV
+from mimo_tpu_torch.models import pose_guider as PG
+from mimo_tpu_torch.models import unet as U
+from mimo_tpu_torch.models import vae as V
+from mimo_tpu_torch.pipelines import pose2vid
+from mimo_tpu_torch.utils import frames as FU
+from mimo_tpu_torch.weights import bridge
+
+
+def init_random_params(cfg: MIMOConfig, generator: torch.Generator,
+                       dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """Random weights at the config's width, drawn on the generator's
+    device with the JAX initialisers' bounds."""
+    return {
+        "reference_unet": U.unet_init(generator, cfg.reference_unet, dtype),
+        "denoising_unet": U.unet_init(generator, cfg.denoising_unet, dtype),
+        "pose_guider": PG.pose_guider_init(generator, cfg.pose_guider, dtype),
+        "vae": V.vae_init(generator, cfg.vae, dtype),
+        "clip": CV.clip_vision_init(generator, cfg.clip_vision, dtype),
+    }
+
+
+def load_params(path: str, device=None,
+                dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """Load a converted .npz weight bundle (mimo_tpu/weights/convert.py)."""
+    return bridge.load_npz(path, device=device, dtype=dtype)
+
+
+def segment_reference(img: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference-image matting heuristic: background colour from the image
+    border; pixels far from it are foreground. Returns (rgb_on_white,
+    mask[0/255])."""
+    border = np.concatenate([
+        img[0].reshape(-1, 3), img[-1].reshape(-1, 3),
+        img[:, 0].reshape(-1, 3), img[:, -1].reshape(-1, 3)], axis=0)
+    bg = np.median(border.astype(np.float32), axis=0)
+    dist = np.linalg.norm(img.astype(np.float32) - bg, axis=-1)
+    mask = FU.clean_mask((dist > 40).astype(np.uint8) * 255)
+    out = img.copy()
+    out[mask == 0] = 255
+    return out, mask
+
+
+def prep_reference_image(img: np.ndarray) -> np.ndarray:
+    """segment → crop to person → pad to white square."""
+    seg, mask = segment_reference(img)
+    if mask.any():
+        seg = FU.crop_img(seg, mask)
+    seg, _ = FU.pad_img(seg, (255, 255, 255))
+    return seg
+
+
+@dataclass
+class Runner:
+    cfg: MIMOConfig
+    params: Dict[str, Any]
+    device: torch.device
+    dtype: torch.dtype = torch.bfloat16
+    # per-phase times (ms) of the last generate(): prepare, step_mean,
+    # decode, steps
+    last_timings: Dict[str, float] = field(default_factory=dict)
+
+    def generate(self, ref_image: np.ndarray, pose_frames: List[np.ndarray],
+                 bk_frames: List[np.ndarray], *, width: int, height: int,
+                 steps: int, cfg_scale: float, seed: int,
+                 window_chunk: Optional[int] = None) -> np.ndarray:
+        """ref_image: (h, w, 3) uint8 prepared reference; pose/bk frames:
+        uint8 lists of any size (resized here). Returns
+        (F, height, width, 3) float32 in [0, 1]."""
+        num_frames = len(pose_frames)
+        dev, dt = self.device, self.dtype
+
+        def tensor(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+        ref = FU.resize_frame(ref_image, width, height)
+        ref = (ref.astype(np.float32) / 255.0) * 2.0 - 1.0
+        pose = np.stack([FU.resize_frame(f, width, height)
+                         for f in pose_frames]).astype(np.float32) / 255.0
+        bk = np.stack([FU.resize_frame(f, width, height)
+                       for f in bk_frames]).astype(np.float32) / 255.0
+        bk = bk * 2.0 - 1.0
+        cs = self.cfg.clip_vision.image_size
+        clip_in = FU.resize_frame(ref_image, cs, cs).astype(np.float32) / 255.0
+        clip_px = CV.clip_preprocess(torch.from_numpy(clip_in))
+
+        ds = self.cfg.vae.downscale
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        noise = torch.randn((num_frames, height // ds, width // ds, 4),
+                            generator=gen, device=dev)
+
+        st = pose2vid.Pose2VideoStatic(
+            cfg=self.cfg, num_frames=num_frames, height=height, width=width,
+            num_inference_steps=steps, guidance_scale=cfg_scale,
+            window_chunk=window_chunk)
+        clock = pose2vid.PhaseClock(dev)
+        out = pose2vid.generate_host_loop(
+            self.params, st, tensor(ref), tensor(pose), tensor(bk),
+            clip_px.to(dev, dt), noise.to(dt), clock=clock)
+        ms = clock.durations_ms()
+        step_ms = [ms[f"step{i}"] for i in range(steps)]
+        self.last_timings = {"prepare": ms["prepare"],
+                             "step_mean": sum(step_ms) / len(step_ms),
+                             "decode": ms["decode"], "steps": steps}
+        return out.float().cpu().numpy()

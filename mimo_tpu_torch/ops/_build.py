@@ -1,0 +1,121 @@
+"""Build and bind the CUDA kernels under ``mimo_tpu_torch/csrc/``.
+
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+shared library with a plain C interface, which ``ctypes`` loads. The library
+is named by a hash of the sources and flags and lives in
+``mimo_tpu_torch/_build/`` (ignored by git), so a changed source rebuilds and
+an unchanged one loads in milliseconds. Every pointer and the stream cross
+the boundary as ``c_void_p``; each C entry point returns the
+``cudaGetLastError()`` code of its launches, and :func:`check` raises on any
+code but 0.
+
+There is no fallback: without ``nvcc`` or when the build fails, this raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signature of every exported entry point: (argtypes, restype)
+_SIGNATURES = {
+    "mimo_cuda_error_string": ([_I], ctypes.c_char_p),
+    "mimo_flash_attention_fwd": (
+        [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P], _I),
+    "mimo_group_norm_fwd": ([_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
+    "mimo_gemm_fwd": (
+        [_P, _L, _P, _L, _P, _P, _L, _P, _L] + [_I] * 3
+        + [_P, _P, _P, _F, _P] + [_I] * 3 + [_P], _I),
+    "mimo_temporal_attention_fwd": ([_P, _P] + [_I] * 5 + [_F, _P], _I),
+}
+
+_STATE: Dict[str, object] = {}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $PATH first, then the toolkit's default location."""
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "mimo_tpu_torch CUDA kernels need nvcc (CUDA toolkit) to build; none "
+        "was found on PATH or at /usr/local/cuda/bin/nvcc")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha1()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libmimo_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    lib = _STATE.get("lib")
+    if lib is not None:
+        return lib
+    so = library_path()
+    if not so.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in _sources() if s.suffix == ".cu"]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n{log}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+        _STATE["build_seconds"] = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _STATE["lib"] = lib
+    return lib
+
+
+def build_seconds() -> Optional[float]:
+    """Wall time of the nvcc run in this process (None if it loaded a
+    library built earlier)."""
+    return _STATE.get("build_seconds")
+
+
+def build_log() -> str:
+    """nvcc's output for the current library (ptxas register/smem use)."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load_library().mimo_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,215 @@
+"""The GEMM-chain ops of the transformer and motion blocks: the CUDA tile
+core in ``csrc/gemm.cu`` and the plain PyTorch version of each op.
+
+Counterpart of ``mimo_tpu/ops/ffn.py``. Every Pallas kernel there becomes one
+or two launches of one GEMM kernel with a LayerNorm prologue and a bias,
+bias + residual or GEGLU epilogue:
+
+- ``ffn_ln_geglu_fused``: ``x + W_d·(h·gelu_erf(g)) + b_d`` with
+  ``[h ‖ g] = W_u·LN(x) + b_u`` (``_ffn_pallas_nsc``/``_snc``): an
+  LN + GEGLU launch writes the (R, inner) gated activation, a bias +
+  residual launch the result;
+- ``qkv_ln_fused``: LN, then one bias-free (C, 3C) product
+  (``_qkv_ln_pallas``/``_snc``);
+- ``matmul_bias_residual``: ``res + x·W + b`` (``_matmul_res_pallas``/``_snc``);
+- ``matmul_bias``: ``x·W + b`` (``_matmul_pallas``/``_snc``).
+
+The SNC layout variants existed for XLA's conv layouts and have no
+counterpart: PyTorch hands the token tensors over row-major.
+
+Numerics are those of the unfused composition, which the plain versions
+compute: LN statistics and affine in fp32, rounded to the activation dtype;
+each product rounded before its bias; bias, residual and gate applied in
+the activation dtype; exact (erf) gelu in fp32.
+
+Each wrapper takes its plain version for CPU tensors only. For a CUDA tensor
+it launches the kernel or raises; ``<wrapper>.launches`` counts the calls
+that launched it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from mimo_tpu_torch.models.layers import geglu_ff, layer_norm, linear
+from mimo_tpu_torch.ops import _build
+
+Params = Dict[str, Any]
+
+_EPI_BIAS, _EPI_BIAS_RES, _EPI_GEGLU = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the unfused composition)
+# ---------------------------------------------------------------------------
+
+
+def ffn_ln_geglu_plain(x: torch.Tensor, ln_p: Params, ff_p: Params,
+                       eps: float = 1e-5) -> torch.Tensor:
+    return x + geglu_ff(ff_p, layer_norm(ln_p, x, eps))
+
+
+def qkv_ln_plain(x: torch.Tensor, ln_p: Params, attn_p: Params,
+                 eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+    norm = layer_norm(ln_p, x, eps)
+    return tuple(linear(attn_p[k], norm) for k in ("to_q", "to_k", "to_v"))
+
+
+def matmul_bias_residual_plain(x: torch.Tensor, lin_p: Params,
+                               res: torch.Tensor) -> torch.Tensor:
+    return res + linear(lin_p, x)
+
+
+def matmul_bias_plain(x: torch.Tensor, lin_p: Params) -> torch.Tensor:
+    return linear(lin_p, x)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def _rows(x: torch.Tensor, what: str) -> torch.Tensor:
+    """x as a row-major (R, K) bf16 CUDA matrix the kernel can read."""
+    if not x.is_cuda or x.dtype != torch.bfloat16:
+        raise ValueError(f"gemm kernel: {what} must be a bfloat16 CUDA tensor, "
+                         f"got {x.dtype} on {x.device}")
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
+        x2 = x2.contiguous()
+    return x2
+
+
+def _vec(t: Optional[torch.Tensor], n: int, dev) -> Optional[torch.Tensor]:
+    if t is None:
+        return None
+    if t.numel() != n:
+        raise ValueError(f"gemm kernel: vector of {t.numel()} values, "
+                         f"expected {n}")
+    return t.to(device=dev, dtype=torch.bfloat16).contiguous()
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor, *,
+         bias: Optional[torch.Tensor] = None,
+         res: Optional[torch.Tensor] = None, geglu: bool = False,
+         ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
+         pe: Optional[torch.Tensor] = None, pe_div: int = 1) -> torch.Tensor:
+    """(R, n) = epilogue(prologue(a) · w) through ``mimo_gemm_fwd``: the
+    tile core, after the LayerNorm row kernel when ``ln`` is given.
+
+    a: (..., K) bf16 CUDA; w: (K, n), or (K, 2n) with ``geglu`` (value
+    columns, then gate columns); ``ln = (scale, bias, eps)`` normalises each
+    row of a first (into an (R, K) workspace); ``pe`` (F, K) is added to the
+    normalised row r, which belongs to frame (r // pe_div) % F. Epilogue:
+    + bias, + bias + res (res (R, n)), or GEGLU with bias (2n,)."""
+    a2 = _rows(a, "a")
+    r, k = a2.shape
+    wc = _rows(w, "w")
+    if wc.shape[0] != k:
+        raise ValueError(f"gemm kernel: a has K={k}, w {tuple(w.shape)}")
+    n = wc.shape[1] // 2 if geglu else wc.shape[1]
+    if k % 8 or n % 8:
+        raise ValueError(f"gemm kernel: K={k} and N={n} must be multiples of 8")
+    dev = a2.device
+    bias_c = _vec(bias, 2 * n if geglu else n, dev)
+    res2 = None
+    if res is not None:
+        res2 = _rows(res, "res")
+        if res2.shape != (r, n):
+            raise ValueError(f"gemm kernel: residual {tuple(res.shape)} does "
+                             f"not match the ({r}, {n}) output")
+    if geglu and bias_c is None:
+        raise ValueError("gemm kernel: the GEGLU epilogue needs its bias")
+    scale_c = bias_ln = ln_out = None
+    eps = 0.0
+    if ln is not None:
+        scale_c, bias_ln, eps = _vec(ln[0], k, dev), _vec(ln[1], k, dev), ln[2]
+        ln_out = torch.empty((r, k), dtype=torch.bfloat16, device=dev)
+    pe_c = None
+    if pe is not None:
+        if ln is None or pe.dim() != 2 or pe.shape[1] != k:
+            raise ValueError("gemm kernel: pe must be (F, K) and needs ln")
+        pe_c = pe.to(device=dev, dtype=torch.bfloat16).contiguous()
+    epi = _EPI_GEGLU if geglu else (_EPI_BIAS_RES if res2 is not None
+                                    else _EPI_BIAS)
+    out = torch.empty((r, n), dtype=torch.bfloat16, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.load_library().mimo_gemm_fwd(
+        a2.data_ptr(), a2.stride(0), wc.data_ptr(), wc.stride(0), ptr(bias_c),
+        ptr(res2), res2.stride(0) if res2 is not None else 0, out.data_ptr(),
+        out.stride(0), r, n, k, ptr(scale_c), ptr(bias_ln), ptr(ln_out),
+        float(eps), ptr(pe_c), int(pe_div),
+        pe_c.shape[0] if pe_c is not None else 1, epi,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "gemm")
+    return out
+
+
+def _w3(attn_p: Params) -> torch.Tensor:
+    """[W_q | W_k | W_v] (C, 3C) of a bias-free diffusers Attention."""
+    if any("bias" in attn_p[k] for k in ("to_q", "to_k", "to_v")):
+        raise ValueError("qkv kernel: to_q/to_k/to_v must be bias-free")
+    return torch.cat([attn_p[k]["kernel"] for k in ("to_q", "to_k", "to_v")],
+                     dim=1)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def ffn_ln_geglu_fused(x: torch.Tensor, ln_p: Params, ff_p: Params,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """x + proj_out(geglu(proj_in(LN(x)))) over the trailing axis."""
+    if not x.is_cuda:
+        return ffn_ln_geglu_plain(x, ln_p, ff_p, eps)
+    h = gemm(x, ff_p["proj_in"]["kernel"], geglu=True,
+             bias=ff_p["proj_in"]["bias"],
+             ln=(ln_p["scale"], ln_p["bias"], eps))
+    y = gemm(h, ff_p["proj_out"]["kernel"], bias=ff_p["proj_out"]["bias"],
+             res=x)
+    ffn_ln_geglu_fused.launches += 1
+    return y.reshape(x.shape)
+
+
+def qkv_ln_fused(x: torch.Tensor, ln_p: Params, attn_p: Params,
+                 eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+    """(q, k, v) = to_{q,k,v}(LN(x)) over an (N, S, C) token tensor. On the
+    card the three are column views of one (N, S, 3C) result."""
+    if not x.is_cuda:
+        return qkv_ln_plain(x, ln_p, attn_p, eps)
+    c = x.shape[-1]
+    out = gemm(x, _w3(attn_p), ln=(ln_p["scale"], ln_p["bias"], eps))
+    out = out.reshape(*x.shape[:-1], 3 * c)
+    qkv_ln_fused.launches += 1
+    return out[..., :c], out[..., c:2 * c], out[..., 2 * c:]
+
+
+def matmul_bias_residual(x: torch.Tensor, lin_p: Params,
+                         res: torch.Tensor) -> torch.Tensor:
+    """res + linear(lin_p, x) over (..., K); the result has res's shape."""
+    if not x.is_cuda:
+        return matmul_bias_residual_plain(x, lin_p, res)
+    y = gemm(x, lin_p["kernel"], bias=lin_p.get("bias"), res=res)
+    matmul_bias_residual.launches += 1
+    return y.reshape(res.shape)
+
+
+def matmul_bias(x: torch.Tensor, lin_p: Params) -> torch.Tensor:
+    """linear(lin_p, x) over (..., K)."""
+    if not x.is_cuda:
+        return matmul_bias_plain(x, lin_p)
+    y = gemm(x, lin_p["kernel"], bias=lin_p.get("bias"))
+    matmul_bias.launches += 1
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+ffn_ln_geglu_fused.launches = 0
+qkv_ln_fused.launches = 0
+matmul_bias_residual.launches = 0
+matmul_bias.launches = 0
