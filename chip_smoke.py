@@ -11,12 +11,18 @@ Phases, in order; any failure exits non-zero:
    call must count one launch) against its plain PyTorch version on the
    card at the main path's shapes (ragged edges included), max error beside
    the stated tolerance, and both times;
-4. main path: a small-input agreement check (card, bf16 + kernels, against
+4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``): every
+   mode, in both K/V layouts, against its plain version at UNet levels 0
+   and 1 and a ragged shape; ``full`` bit-equal to the production flash
+   kernel; each stand-in mode's output moves with an input it keeps; then
+   the tool's own run (every mode timed at B=24, Sq=6272, Sk=12544, d=40)
+   with its launch count read just after;
+5. main path: a small-input agreement check (card, bf16 + kernels, against
    the CPU fp32 plain path), then a full-width MIMOConfig() generation of a
    24-frame 512x784 clip with CFG through ``entry.animate.animate``, twice
    through one Runner; the second run's phase times and kernel launch
    counts are printed and every count must be > 0;
-5. the last line: {"ok": true, "device": {...}}.
+6. the last line: {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --calibrate`` runs phases 1-2, then the readings
 that place the limits of the small-input agreement check (sound seeds and
@@ -200,7 +206,7 @@ def phase_kernels():
         q, k, v = (randn(24, s, 8 * d) for _ in range(3))
         bank = ((randn(1, s, 8 * d), randn(1, s, 8 * d))
                 if wrapper is FA.flash_attention_nt_bank else ())
-        ms = cuda_ms(lambda: wrapper(q, k, v, *bank, 8), 5)
+        ms = cuda_ms(lambda: wrapper(q, k, v, *bank, 8), 20)
         sk = s + (s if bank else 0)
         tflops = 4 * 24 * 8 * s * sk * d / (ms * 1e-3) / 1e12
         log(f"  {wrapper.__name__} d={d} B=24 S={s}: kernel {ms:.3f} ms "
@@ -310,6 +316,89 @@ def gemm_chain_cases(FF, TA, randn):
     return entries
 
 
+def phase_ablation():
+    """The ablation builds of the flash kernel against their plain
+    versions, then the tool's main path. Returns (entries, {name: launches
+    of the tool's run})."""
+    log("== phase 4: flash ablation builds (tools/ablate_flash.py port)")
+    from mimo_tpu_torch.ops import flash_attention as FA
+    from mimo_tpu_torch.tools import ablate_flash as AB
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    attn = (2e-2, 2e-2, "bf16 output and P rounded to bf16 for P.V; "
+            "reference fp32 on the same bf16 inputs")
+    # the stand-ins' outputs are weighted means of v (or shares in [0, 1])
+    # that can be far smaller than 1: hold them to two bf16 ulps of their
+    # largest value, as the GEMM chain is
+    stand_in = ("P rounded to bf16 where the kernel feeds it to an mma, on "
+                "both sides; fp32 sums in another order can flip a bf16 "
+                "output rounding, so |d| <= 2^-6 max|ref|")
+    name, src = "ablate_flash.run", "mimo_tpu_torch/csrc/flash_ablate.cu"
+    entries = []
+    heads = 8
+    # (d, B, Sq, Sk): UNet level 0 self + bank keys, level 1, ragged
+    for d, b, sq, sk in ((40, 2, 6272, 12544), (80, 2, 1568, 3136),
+                         (40, 2, 1100, 1000)):
+        q = randn(b, sq, heads * d, scale=2.0)
+        k = randn(b, sk, heads * d, scale=2.0)
+        v = randn(b, sk, heads * d)
+        full = call_wrapper(AB.run, q, k, v, heads, "full")
+        prod = FA.flash_attention_nt(q, k, v, heads)
+        if not torch.equal(full, prod):
+            raise AssertionError(f"run(mode='full') d={d} Sq={sq} differs "
+                                 f"from flash_attention_nt")
+        log(f"  full d={d} B={b} Sq={sq} Sk={sk}: bit-equal to "
+            f"flash_attention_nt")
+        for pre in (False, True):
+            lay = AB.pretranspose if pre else (lambda x: x)
+            args = tuple(lay(x) for x in (q, k, v))
+            for mode in AB.MODES:
+                got = call_wrapper(AB.run, *args, heads, mode, pre)
+                torch.cuda.synchronize()
+                label = (f"{name} {mode}{' pretransposed' if pre else ''} "
+                         f"d={d} B={b} Sq={sq} Sk={sk}")
+                want = AB.run_plain(*args, heads, mode, pre)
+                if mode in AB.ATTENTION_MODES:
+                    err = check_close(label, got, want, *attn)
+                else:
+                    err = check_close(label, got, want,
+                                      float(want.float().abs().max()) / 64,
+                                      0.0, stand_in)
+                    # move an input the mode still computes with: the q/k
+                    # elements of the rank-1 stand-in, else one key row
+                    q2, k2 = q.clone(), k.clone()
+                    if mode in ("noqk", "nomxu"):
+                        q2[:, :, ::d] += 0.5
+                    else:
+                        k2[:, 0, :] += 1.0
+                    moved = call_wrapper(AB.run, lay(q2), lay(k2), args[2],
+                                         heads, mode, pre)
+                    change = float((moved.float() - got.float()).abs().max())
+                    log(f"    dependency: output moves by {change:.4g}")
+                    if change == 0.0:
+                        raise AssertionError(f"{label}: output does not "
+                                             f"depend on a kept input")
+                if (d, sq) == (40, 6272):
+                    entries.append(kernel_entry(
+                        name, src, "tools/ablate_flash.py:210", label, err,
+                        lambda: AB.run(*args, heads, mode, pre),
+                        lambda: AB.run_plain(*args, heads, mode, pre)))
+
+    log("  the tool's run: python -m mimo_tpu_torch.tools.ablate_flash")
+    AB.run.launches = 0
+    times = AB.main()
+    launches = AB.run.launches
+    log(f"  kernel launches in the tool's run: {{'{name}': {launches}}}")
+    if launches <= 0 or not all(t > 0 for t in times.values()):
+        raise AssertionError("the ablation tool did not launch its kernel")
+    return entries, {name: launches}
+
+
 def agreement_error(seed: int, fault=None):
     """Tiny-config generation at 256x256 (level-0 attention over 1024
     tokens, so the flash kernels run) on the card in bf16 against the CPU
@@ -401,7 +490,7 @@ def template_frames():
 
 
 def phase_main_path():
-    log("== phase 4: main path")
+    log("== phase 5: main path")
     small_input_agreement()
     from mimo_tpu_torch import config as C
     from mimo_tpu_torch.entry.animate import animate
@@ -528,9 +617,11 @@ def main() -> None:
         calibrate()
         return
     entries = phase_kernels()
+    ablation, ablation_launches = phase_ablation()
     launches = phase_main_path()
+    launches.update(ablation_launches)
     kernels = []
-    for e in entries:
+    for e in entries + ablation:
         kernels.append({"name": e["name"], "route": e["route"],
                         "source": e["source"], "replaces": e["replaces"],
                         "shape": e["shape"], "launches": launches[e["name"]],

@@ -6,6 +6,7 @@ directory or the sdc pose frames already in memory (which needs no OpenCV).
 
 CLI: python -m mimo_tpu_torch.entry.animate --ref ref.png --template dir/ \
         --output out.mp4 [--weights bundle.npz] [--W 784 --H 784 ...]
+The CLI runs on a CUDA device and raises without one.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ def animate(runner: Runner, ref_img: np.ndarray,
             template: Union[str, os.PathLike, Sequence[np.ndarray]], *,
             width: int = 784, height: int = 784, steps: int = 25,
             cfg_scale: float = 3.5, seed: int = 42,
-            max_frames: int = 150) -> np.ndarray:
-    """Returns the (F, height, width, 3) float video in [0, 1].
+            max_frames: int = 150,
+            interpolation_factor: int = 0) -> np.ndarray:
+    """Returns the (F', height, width, 3) float video in [0, 1], F' = F or
+    (F-1)*interpolation_factor + 1 when the factor is >= 2.
     ``template``: a template directory, or the sdc pose frames as (H, W, 3)
     uint8 arrays."""
     if isinstance(template, (str, os.PathLike)):
@@ -53,7 +56,8 @@ def animate(runner: Runner, ref_img: np.ndarray,
 
     return runner.generate(ref, padded_pose, padded_bk, width=width,
                            height=height, steps=steps, cfg_scale=cfg_scale,
-                           seed=seed)
+                           seed=seed,
+                           interpolation_factor=interpolation_factor)
 
 
 def main(argv=None):
@@ -71,13 +75,22 @@ def main(argv=None):
     ap.add_argument("--cfg", type=float, default=3.5)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--max-frames", type=int, default=150)
+    ap.add_argument("--interp", type=int, default=0,
+                    help="latent interpolation factor (frame-rate "
+                         "upsampling; reference pipeline "
+                         "interpolation_factor)")
     args = ap.parse_args(argv)
 
     # validate inputs before the (slow) model init
     tpl_probe = load_template(args.template, max_frames=1)
     ref = VIO.load_image(args.ref)
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("mimo_tpu_torch.entry.animate needs a CUDA device "
+                           "(torch.cuda.is_available() is False); the "
+                           "library API (Runner, animate) takes an explicit "
+                           "device")
+    device = torch.device("cuda")
     dtype = DTypePolicy.for_device(device).compute_dtype
     cfg = MIMOConfig()
     if args.weights:
@@ -88,7 +101,8 @@ def main(argv=None):
     runner = Runner(cfg=cfg, params=params, device=device, dtype=dtype)
     video = animate(runner, ref, args.template, width=args.W, height=args.H,
                     steps=args.steps, cfg_scale=args.cfg, seed=args.seed,
-                    max_frames=args.max_frames)
+                    max_frames=args.max_frames,
+                    interpolation_factor=args.interp)
     VIO.save_video(video, args.output, fps=tpl_probe.fps)
     print(f"saved {video.shape[0]} frames to {args.output}")
 

@@ -80,10 +80,12 @@ class Runner:
     def generate(self, ref_image: np.ndarray, pose_frames: List[np.ndarray],
                  bk_frames: List[np.ndarray], *, width: int, height: int,
                  steps: int, cfg_scale: float, seed: int,
-                 window_chunk: Optional[int] = None) -> np.ndarray:
+                 window_chunk: Optional[int] = None,
+                 interpolation_factor: int = 0) -> np.ndarray:
         """ref_image: (h, w, 3) uint8 prepared reference; pose/bk frames:
         uint8 lists of any size (resized here). Returns
-        (F, height, width, 3) float32 in [0, 1]."""
+        (F', height, width, 3) float32 in [0, 1]: F' = F, or
+        (F-1)*interpolation_factor + 1 when the factor is >= 2."""
         num_frames = len(pose_frames)
         dev, dt = self.device, self.dtype
 
@@ -109,7 +111,8 @@ class Runner:
         st = pose2vid.Pose2VideoStatic(
             cfg=self.cfg, num_frames=num_frames, height=height, width=width,
             num_inference_steps=steps, guidance_scale=cfg_scale,
-            window_chunk=window_chunk)
+            window_chunk=window_chunk,
+            interpolation_factor=interpolation_factor)
         clock = pose2vid.PhaseClock(dev)
         out = pose2vid.generate_host_loop(
             self.params, st, tensor(ref), tensor(pose), tensor(bk),

@@ -1,6 +1,7 @@
 """Build and bind the CUDA kernels under ``mimo_tpu_torch/csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and links the objects into one
 shared library with a plain C interface, which ``ctypes`` loads. The library
 is named by a hash of the sources and flags and lives in
 ``mimo_tpu_torch/_build/`` (ignored by git), so a changed source rebuilds and
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -27,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +46,8 @@ _SIGNATURES = {
         [_P, _L, _P, _L, _P, _P, _L, _P, _L] + [_I] * 3
         + [_P, _P, _P, _F, _P] + [_I] * 3 + [_P], _I),
     "mimo_temporal_attention_fwd": ([_P, _P] + [_I] * 5 + [_F, _P], _I),
+    "mimo_flash_ablate_fwd": (
+        [_I, _I] + [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P], _I),
 }
 
 _STATE: Dict[str, object] = {}
@@ -72,6 +76,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmimo_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile_and_link(nvcc: str, so: Path) -> str:
+    """One nvcc per source, all at once, then one link into ``so``.
+    Returns the compilers' output; raises with it if any step fails."""
+    objs = Path(tempfile.mkdtemp(prefix=f"{so.stem}.", dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"),
+                   str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = ""
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *[str(o) for o in sorted(objs.glob("*.o"))]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout + res.stderr}")
+        os.replace(tmp, so)
+        return log
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
+
+
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib = _STATE.get("lib")
@@ -81,17 +122,9 @@ def load_library() -> ctypes.CDLL:
     if not so.exists():
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n{log}")
+        log = _compile_and_link(nvcc, so)
         so.with_suffix(".log").write_text(log)
-        os.replace(tmp, so)
         _STATE["build_seconds"] = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():
@@ -103,7 +136,7 @@ def load_library() -> ctypes.CDLL:
 
 
 def build_seconds() -> Optional[float]:
-    """Wall time of the nvcc run in this process (None if it loaded a
+    """Wall time of the nvcc build in this process (None if it loaded a
     library built earlier)."""
     return _STATE.get("build_seconds")
 

@@ -5,10 +5,11 @@ Counterpart of ``mimo_tpu/pipelines/pose2vid.py`` (single-device branches):
 reference-UNet pass writing the attention banks), ``_accumulate_step`` (all
 windows of one DDIM step through the denoising UNet, overlap averaging with
 a per-frame counter, CFG) and ``generate_host_loop`` (the step loop on the
-host). ``vae_chunk`` bounds the full-resolution VAE passes with a Python
-loop in place of ``lax.map``.
+host, then the optional latent interpolation of ``pipelines/interp.py``,
+then the decode). ``vae_chunk`` bounds the full-resolution VAE passes with
+a Python loop in place of ``lax.map``.
 
-Interpolation, mesh sharding and the scanned ``generate_fn`` are not ported.
+Mesh sharding and the scanned ``generate_fn`` are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from mimo_tpu_torch.models import pose_guider as PG
 from mimo_tpu_torch.models import unet as U
 from mimo_tpu_torch.models import vae as V
 from mimo_tpu_torch.pipelines.context import compute_windows
+from mimo_tpu_torch.pipelines.interp import interpolate_latents
 from mimo_tpu_torch.schedulers.ddim import DDIM
 
 Params = Dict[str, Any]
@@ -43,6 +45,9 @@ class Pose2VideoStatic:
     guidance_scale: float
     window_chunk: Optional[int] = None   # None = all windows at once
     vae_chunk: int = 8                   # frames per VAE call
+    interpolation_factor: int = 0        # latent frame-rate upsampling
+                                         # before decode (< 2: none)
+    interpolation_mode: str = "slerp"    # "slerp" or linear
 
     @property
     def do_cfg(self) -> bool:
@@ -216,7 +221,8 @@ def generate_host_loop(params: Params, st: Pose2VideoStatic,
     """Full generation: conditioning → DDIM loop on the host → decode.
 
     noise: (F, h, w, 4) standard normal (the caller owns the generator).
-    Returns the video (F, H, W, 3) in [0, 1]. ``clock``, if given, is
+    Returns the video (F', H, W, 3) in [0, 1], F' = (F-1)*factor + 1 with
+    ``st.interpolation_factor`` >= 2, else F. ``clock``, if given, is
     marked at "start", "prepare", "step0".."stepN-1" and "decode"."""
     mark = clock.mark if clock is not None else (lambda name: None)
     mark("start")
@@ -234,6 +240,8 @@ def generate_host_loop(params: Params, st: Pose2VideoStatic,
                              win, wts, counter)
         latents = ddim.step_v(v, i, latents)
         mark(f"step{i}")
+    latents = interpolate_latents(latents, st.interpolation_factor,
+                                  st.interpolation_mode)
     video = decode_frames(params, st, latents)
     mark("decode")
     return video

@@ -22,7 +22,8 @@ SLICE_MODULES = [
     "mimo_tpu_torch.pipelines.pose2vid", "mimo_tpu_torch.utils.frames",
     "mimo_tpu_torch.utils.video_io", "mimo_tpu_torch.entry.template",
     "mimo_tpu_torch.entry.runner", "mimo_tpu_torch.entry.animate",
-    "mimo_tpu_torch.entry.profile",
+    "mimo_tpu_torch.entry.profile", "mimo_tpu_torch.pipelines.interp",
+    "mimo_tpu_torch.tools.ablate_flash",
 ]
 
 

@@ -25,12 +25,19 @@ set_fp32_matmuls()
 ATOL = 2e-4
 
 
-@pytest.mark.parametrize("frames,guidance,window_chunk", [
-    (6, 3.5, None),      # one window, CFG
-    (10, 3.5, 2),        # several overlapping windows, run in chunks
-    (6, 1.0, None),      # no CFG
+@pytest.mark.parametrize("frames,guidance,window_chunk,interp,interp_mode", [
+    # one window, CFG
+    pytest.param(6, 3.5, None, 0, "slerp", id="6-3.5-None"),
+    # several overlapping windows, run in chunks
+    pytest.param(10, 3.5, 2, 0, "slerp", id="10-3.5-2"),
+    # no CFG
+    pytest.param(6, 1.0, None, 0, "slerp", id="6-1.0-None"),
+    # latent interpolation before the decode, both modes
+    pytest.param(6, 3.5, None, 2, "slerp", id="6-3.5-None-interp2-slerp"),
+    pytest.param(6, 3.5, None, 2, "linear", id="6-3.5-None-interp2-linear"),
 ])
-def test_generation_matches_jax(frames, guidance, window_chunk):
+def test_generation_matches_jax(frames, guidance, window_chunk, interp,
+                                interp_mode):
     cfg = JC.tiny_mimo_config()
     h = w = 32
     params = tiny_params(cfg)
@@ -38,15 +45,20 @@ def test_generation_matches_jax(frames, guidance, window_chunk):
                                                              w)]
     st_j = JP.Pose2VideoStatic(cfg=cfg, num_frames=frames, height=h, width=w,
                                num_inference_steps=2,
-                               guidance_scale=guidance)
+                               guidance_scale=guidance,
+                               interpolation_factor=interp,
+                               interpolation_mode=interp_mode)
     ref = np.asarray(JP.generate_fn(params, st_j, *inputs))
     st_t = P.Pose2VideoStatic(cfg=C.tiny_mimo_config(), num_frames=frames,
                               height=h, width=w, num_inference_steps=2,
                               guidance_scale=guidance,
-                              window_chunk=window_chunk)
+                              window_chunk=window_chunk,
+                              interpolation_factor=interp,
+                              interpolation_mode=interp_mode)
     got = P.generate_host_loop(bridge_params(params), st_t,
                                *[tt(a) for a in inputs])
-    assert got.shape == (frames, h, w, 3)
+    out_frames = (frames - 1) * interp + 1 if interp >= 2 else frames
+    assert got.shape == (out_frames, h, w, 3)
     np.testing.assert_allclose(nn(got), ref, atol=ATOL)
 
 
@@ -125,3 +137,25 @@ def test_cli_validates_template_before_model_init(tmp_path):
         main(["--ref", str(tmp_path / "ref.png"), "--template",
               str(tmp_path / "missing"), "--output",
               str(tmp_path / "out.mp4")])
+
+
+def test_cli_needs_cuda_after_input_checks(tmp_path, monkeypatch):
+    """With valid inputs and no CUDA device, the CLI raises a RuntimeError
+    that names CUDA, and builds no weights: no CPU fallback."""
+    import types
+    from mimo_tpu_torch.entry import animate as AN
+    monkeypatch.setattr(AN, "load_template",
+                        lambda path, max_frames: types.SimpleNamespace(
+                            fps=30, sdc=[np.zeros((8, 8, 3), np.uint8)]))
+    monkeypatch.setattr(AN.VIO, "load_image",
+                        lambda path: np.zeros((8, 8, 3), np.uint8))
+    built = []
+    monkeypatch.setattr(AN, "init_random_params",
+                        lambda *a, **k: built.append("random"))
+    monkeypatch.setattr(AN, "load_params", lambda *a, **k: built.append("npz"))
+    monkeypatch.setattr(AN.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AN.main(["--ref", str(tmp_path / "ref.png"), "--template",
+                 str(tmp_path / "tpl"), "--output", str(tmp_path / "o.mp4"),
+                 "--interp", "2"])
+    assert built == []
