@@ -6,11 +6,17 @@ Phases, in order; any failure exits non-zero:
 
 1. device: fails without CUDA; prints the card's name and power limit and
    the torch / CUDA / triton / nvcc versions;
-2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc;
+2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc and
+   prints ptxas's registers and spills; fails if the GEMM tile core spills
+   or ptxas ignored a setmaxnreg;
 3. kernels: each kernel wrapper (the function the main path calls; one
    call must count one launch) against its plain PyTorch version on the
    card at the main path's shapes (ragged edges included), max error beside
-   the stated tolerance, and both times;
+   the stated tolerance; the kernel's, the plain version's and, where one
+   PyTorch call computes the same function or the tile core's product(s),
+   that call's time (a yardstick the port never calls), beside the bound:
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over their peak rate, the larger);
 4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``): every
    mode, in both K/V layouts, against its plain version at UNet levels 0
    and 1 and a ragged shape; ``full`` bit-equal to the production flash
@@ -26,7 +32,12 @@ Phases, in order; any failure exits non-zero:
 
 ``python3 chip_smoke.py --calibrate`` runs phases 1-2, then the readings
 that place the limits of the small-input agreement check (sound seeds and
-planted faults), and prints no result line.
+planted faults), and prints no result line. ``python3 chip_smoke.py
+--kernels`` runs phases 1-3 and the GEMM tile core's breakdown (each launch
+of the FFN and of q|k|v timed alone, beside variants that drop one piece
+of the work and beside torch.matmul of the same products), then prints
+phase 3's numbers as one JSON line, and no result line: run from another
+tree's checkout, it times that tree's kernels on the same cases.
 
 Needs no JAX, no OpenCV and no files from outside the repository; weights
 are random, drawn from a seeded torch.Generator.
@@ -44,6 +55,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STEPS = 4            # DDIM steps of the full-width run
 FRAMES, HEIGHT, WIDTH = 24, 512, 784
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
+PEAK_BF16 = 989e12   # tensor-core FLOP/s in bf16
+PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12  # HBM bytes/s
 
 
 def log(msg: str) -> None:
@@ -61,6 +76,13 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move nbytes and do flops at ``peak``, whichever is larger."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -113,9 +135,15 @@ def phase_build() -> None:
     log(f"  library {_build.library_path().name}: "
         f"{'built in %.1f s' % secs if secs is not None else 'cached'} "
         f"(load {time.perf_counter() - t0:.1f} s)")
-    # ptxas -v: registers and spills of each kernel (mangled names)
+    # ptxas -v: registers and spills of each kernel (mangled names), and
+    # any warning (C7508: setmaxnreg ignored)
     name = None
+    bad = []
     for line in _build.build_log().splitlines():
+        if "warning" in line:
+            log(f"  {line.strip()}")
+            if "setmaxnreg" in line:
+                bad.append(line.strip())
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif "spill stores" in line and name:
@@ -123,7 +151,11 @@ def phase_build() -> None:
         elif "Used" in line and "registers" in line and name:
             regs = line.split("Used")[1].split(",")[0].strip()
             log(f"  ptxas {name}: {regs}; {spills}")
+            if "gemm_kernel" in name and not spills.startswith("0 bytes"):
+                bad.append(f"{name}: {spills}")
             name = None
+    if bad:
+        raise AssertionError(f"GEMM tile core build: {bad}")
 
 
 def call_wrapper(wrapper, *args, **kwargs):
@@ -137,13 +169,46 @@ def call_wrapper(wrapper, *args, **kwargs):
     return out
 
 
-def kernel_entry(name, source, replaces, label, err, run, plain):
-    """Time the wrapper and its plain version; one entry of the JSON line."""
+def kernel_entry(name, source, replaces, label, err, run, plain, work,
+                 library=None):
+    """Time the wrapper, its plain version and the library yardstick
+    (``library`` = (description, fn), or (reason there is none, None));
+    ``work`` = (flops, bytes[, peak]) of the function for its bound. One
+    entry of the JSON line."""
     ms = cuda_ms(run, 10)
     plain_ms = cuda_ms(plain, 3)
-    log(f"    time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    lib_what, lib_fn = library or ("no single call", None)
+    library_ms = cuda_ms(lib_fn, 10) if lib_fn is not None else None
+    bound_ms, bound_by = bound(*work)
+    log(f"    time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+        f"{'%.3f ms' % library_ms if library_ms is not None else '-'} "
+        f"({lib_what}); bound {bound_ms:.3f} ms by {bound_by} "
+        f"({bound_ms / ms:.0%} of it)")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                library=lib_what)
+
+
+def flash_work(b, heads, d, sq, sk, n_in, products=2):
+    """FLOPs and bytes of attention: ``products`` of the two (Q.K^T, P.V)
+    at 2 FLOP a multiply-add; n_in input elements and the output, bf16."""
+    return (products * 2 * b * heads * sq * sk * d,
+            2 * (n_in + b * sq * heads * d))
+
+
+def sdpa_call(q, k, v, heads, bank=()):
+    """F.scaled_dot_product_attention on the same q/k/v viewed as (B, H, S,
+    d), the bank concatenated to the keys beforehand."""
+    import torch.nn.functional as F
+    if bank:
+        b = q.shape[0]
+        k = torch.cat([k, bank[0].expand(b, -1, -1)], dim=1)
+        v = torch.cat([v, bank[1].expand(b, -1, -1)], dim=1)
+    qh, kh, vh = (x.unflatten(-1, (heads, -1)).transpose(1, 2)
+                  for x in (q, k, v))
+    return ("F.scaled_dot_product_attention",
+            lambda: F.scaled_dot_product_attention(qh, kh, vh))
 
 
 def phase_kernels():
@@ -191,12 +256,15 @@ def phase_kernels():
         label = (f"{wrapper.__name__} d={d} B={b} Sq={sq} Sk={sk1}"
                  + (f"+bank {sk2}" if sk2 else ""))
         err = check_close(label, got, want, 2e-2, 2e-2, flash_why)
+        n_in = sum(t.numel() for t in (q, k, v, *bank))
         entries.append(kernel_entry(
             wrapper.__name__, "mimo_tpu_torch/csrc/flash_attention.cu",
             "mimo_tpu/ops/flash_transposed.py:"
             + ("403" if sk2 else "222"), label, err,
             lambda: wrapper(*args),
-            lambda: FA.attention_plain(q, k, v, heads, *bank)))
+            lambda: FA.attention_plain(q, k, v, heads, *bank),
+            flash_work(b, heads, d, sq, sk1 + sk2, n_in),
+            sdpa_call(q, k, v, heads, bank)))
 
     # the kernel alone at the full main-path batch (the uncond/cond half)
     for wrapper, d, s in ((FA.flash_attention_nt, 40, 6272),
@@ -232,10 +300,21 @@ def phase_kernels():
                  f"{' +row_add' if radd else ''}{' +silu' if silu else ''}")
         err = check_close(label, got, GN.group_norm_plain(*args), 1e-2, 1e-2,
                           gn_why)
+        # one read and one write of x; ~10 fp32 operations an element
+        # (stats 3, normalise + affine 3, SiLU 4)
+        work = (x.numel() * (10 if silu else 6), 2 * 2 * x.numel()
+                + (2 * ra.numel() if radd else 0), PEAK_FP32)
+        library = None
+        if not (radd or silu):
+            xt = x.transpose(1, 2).contiguous()   # (N, C, S), same values
+            sb, bb = scale.to(bf), bias.to(bf)
+            library = ("F.group_norm on an (N, C, S) copy",
+                       lambda: torch.nn.functional.group_norm(xt, groups, sb,
+                                                              bb, eps))
         entry = kernel_entry("group_norm_fused",
                              "mimo_tpu_torch/csrc/groupnorm.cu", replaces,
                              label, err, lambda: GN.group_norm_fused(*args),
-                             lambda: GN.group_norm_plain(*args))
+                             lambda: GN.group_norm_plain(*args), work, library)
         log(f"    {3 * x.numel() * 2 / (entry['ms'] * 1e-3) / 1e9:.0f} GB/s "
             f"for 2 reads + 1 write")
         entries.append(entry)
@@ -273,32 +352,57 @@ def gemm_chain_cases(FF, TA, randn):
 
     ffn_src = "mimo_tpu_torch/csrc/gemm.cu"
     entries = []
-    # (rows, C): UNet level 0 (48 frames x 6272 tokens), level 2, ragged
-    for rows, c in ((48 * 6272, 320), (48 * 392, 1280), (1000, 640)):
+    # (rows, C): 48 frames (the CFG batch) at UNet level 0 (64x98 latents,
+    # 6272 tokens), level 2 (the stride-2 pad-1 convs halve with ceil:
+    # 64x98 -> 32x49 -> 16x25, 400 tokens) and level 3 (8x13, 104 tokens);
+    # then ragged edges of the tile core: fewer rows than one 128-row tile,
+    # level 3's rows at C=320, and C=232 (K past whole 64-deep stages, N
+    # past whole tiles, GEGLU value/gate tiles cut at the edge)
+    for rows, c in ((48 * 6272, 320), (48 * 400, 1280), (48 * 104, 1280),
+                    (48 * 104, 320), (40, 1280), (40, 320), (1000, 232)):
         x = randn(rows, c, scale=2.0) + 0.3
         ln_p, res = ln(c), randn(rows, c)
         ff_p = {"proj_in": lin(c, 8 * c), "proj_out": lin(4 * c, c)}
         attn = {k: lin(c, c, bias=False) for k in ("to_q", "to_k", "to_v")}
         out = lin(c, c)
-        for wrapper, plain, replaces, args in (
+        x2, h = x.reshape(rows, c), randn(rows, 4 * c)
+        w3 = torch.cat([attn[k]["kernel"] for k in ("to_q", "to_k", "to_v")],
+                       dim=1)
+        w_in, w_out = ff_p["proj_in"]["kernel"], ff_p["proj_out"]["kernel"]
+        # bytes: x (also the residual) read once, the weights, vectors
+        # and the output written once; the FFN's (R, 4C) not counted
+        rc, cc = rows * c, c * c
+        for wrapper, plain, replaces, args, work, library in (
                 (FF.ffn_ln_geglu_fused, FF.ffn_ln_geglu_plain,
-                 "mimo_tpu/ops/ffn.py:161", (x, ln_p, ff_p)),
+                 "mimo_tpu/ops/ffn.py:161", (x, ln_p, ff_p),
+                 (24 * rc * c, 2 * (2 * rc + 12 * cc + 11 * c)),
+                 ("torch.matmul of the up and down products",
+                  lambda: (torch.matmul(x2, w_in), torch.matmul(h, w_out)))),
                 (FF.qkv_ln_fused, FF.qkv_ln_plain,
-                 "mimo_tpu/ops/ffn.py:245", (x, ln_p, attn)),
+                 "mimo_tpu/ops/ffn.py:245", (x, ln_p, attn),
+                 (6 * rc * c, 2 * (4 * rc + 3 * cc + 2 * c)),
+                 ("torch.matmul of the (C, 3C) product",
+                  lambda: torch.matmul(x2, w3))),
                 (FF.matmul_bias_residual, FF.matmul_bias_residual_plain,
-                 "mimo_tpu/ops/ffn.py:415", (x, out, res)),
+                 "mimo_tpu/ops/ffn.py:415", (x, out, res),
+                 (2 * rc * c, 2 * (3 * rc + cc + c)),
+                 ("torch.matmul of the product",
+                  lambda: torch.matmul(x2, out["kernel"]))),
                 (FF.matmul_bias, FF.matmul_bias_plain,
-                 "mimo_tpu/ops/ffn.py:371", (x, out))):
+                 "mimo_tpu/ops/ffn.py:371", (x, out),
+                 (2 * rc * c, 2 * (2 * rc + cc + c)),
+                 ("torch.addmm", lambda: torch.addmm(out["bias"], x2,
+                                                     out["kernel"])))):
             got = call_wrapper(wrapper, *args)
             torch.cuda.synchronize()
             label = f"{wrapper.__name__} R={rows} C={c}"
             err = check(label, got, plain(*args))
             entries.append(kernel_entry(
                 wrapper.__name__, ffn_src, replaces, label, err,
-                lambda: wrapper(*args), lambda: plain(*args)))
+                lambda: wrapper(*args), lambda: plain(*args), work, library))
 
     # motion modules: (B=2, F=24, S, C), 8 heads; levels 0, 2 and 3
-    for s, c in ((6272, 320), (392, 1280), (104, 1280)):
+    for s, c in ((6272, 320), (400, 1280), (104, 1280)):
         x = randn(2, 24, s, c, scale=2.0)
         attn = {k: lin(c, c, bias=False) for k in ("to_q", "to_k", "to_v")}
         attn["to_out"] = lin(c, c)
@@ -308,12 +412,63 @@ def gemm_chain_cases(FF, TA, randn):
         torch.cuda.synchronize()
         label = f"temporal_attention_ln (2, 24, {s}, {c}) heads=8"
         err = check(label, got, TA.temporal_attention_plain(*args))
+        # q|k|v and out products, the F x F attention (4 F FLOP a channel
+        # of a row); x read once, 4 weights, vectors, pe, the output
+        rc = x.numel()
+        work = (8 * rc * c + 4 * 24 * rc, 2 * (2 * rc + 4 * c * c + 3 * c
+                                              + 24 * c))
         entries.append(kernel_entry(
             "temporal_attention_ln", "mimo_tpu_torch/csrc/temporal_attention.cu",
             "mimo_tpu/ops/temporal_attention.py:212", label, err,
             lambda: TA.temporal_attention_ln(*args),
-            lambda: TA.temporal_attention_plain(*args)))
+            lambda: TA.temporal_attention_plain(*args), work,
+            ("no single call: LN + PE, two products and an F x F softmax "
+             "attention", None)))
     return entries
+
+
+def gemm_breakdown() -> None:
+    """Where the tile core's time goes, at UNet levels 0, 1 and 2 (48
+    frames): each launch of the LN + GEGLU FFN and of LN + q|k|v timed
+    alone, beside variants that drop one piece of the work, torch.matmul
+    of the same products and F.gelu. Differences read as costs: ``up
+    geglu`` − ``up 8C`` is the GEGLU epilogue beyond the store of twice its
+    output; ``qkv ln`` − ``qkv`` is the LN pass."""
+    log("== GEMM tile core breakdown (ms)")
+    import torch.nn.functional as F
+    from mimo_tpu_torch.ops import ffn as FF
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    for rows, c in ((48 * 6272, 320), (48 * 1568, 640), (48 * 400, 1280)):
+        x, h = randn(rows, c), randn(rows, 4 * c)
+        w_in, b_in = randn(c, 8 * c, scale=c ** -0.5), randn(8 * c, scale=0.1)
+        w_out = randn(4 * c, c, scale=(4 * c) ** -0.5)
+        b_out = randn(c, scale=0.1)
+        w3 = randn(c, 3 * c, scale=c ** -0.5)
+        ln = (randn(c, scale=0.3) + 1.0, randn(c, scale=0.3), 1e-5)
+        w_v, b_v = w_in[:, :4 * c].contiguous(), b_in[:4 * c].contiguous()
+        cases = {
+            # the FFN's first launch: (R, C) x (C, 8C), GEGLU epilogue
+            "up geglu": lambda: FF.gemm(x, w_in, bias=b_in, geglu=True),
+            # the same value columns alone, + bias (no gate, no gelu)
+            "up 4C bias": lambda: FF.gemm(x, w_v, bias=b_v),
+            # all 8C columns, no epilogue work beyond the store
+            "up 8C": lambda: FF.gemm(x, w_in),
+            # the FFN's second launch: (R, 4C) x (4C, C) + bias + x
+            "down +res": lambda: FF.gemm(h, w_out, bias=b_out, res=x),
+            "qkv": lambda: FF.gemm(x, w3),
+            "qkv ln": lambda: FF.gemm(x, w3, ln=ln),
+            "torch up 8C": lambda: torch.matmul(x, w_in),
+            "torch down": lambda: torch.matmul(h, w_out),
+            "torch qkv": lambda: torch.matmul(x, w3),
+            "torch gelu": lambda: F.gelu(h),
+        }
+        for name, fn in cases.items():
+            log(f"  R={rows} C={c} {name}: {cuda_ms(fn, 20):.4f} ms")
 
 
 def phase_ablation():
@@ -384,10 +539,20 @@ def phase_ablation():
                         raise AssertionError(f"{label}: output does not "
                                              f"depend on a kept input")
                 if (d, sq) == (40, 6272):
+                    # the products the mode keeps; SDPA computes `full`
+                    products = 2 - (mode in ("nopv", "noqk")) \
+                        - 2 * (mode == "nomxu")
+                    library = (sdpa_call(q, k, v, heads)
+                               if mode == "full" and not pre else
+                               ("no single call: an ablation stand-in",
+                                None))
                     entries.append(kernel_entry(
                         name, src, "tools/ablate_flash.py:210", label, err,
                         lambda: AB.run(*args, heads, mode, pre),
-                        lambda: AB.run_plain(*args, heads, mode, pre)))
+                        lambda: AB.run_plain(*args, heads, mode, pre),
+                        flash_work(b, heads, d, sq, sk, q.numel()
+                                   + k.numel() + v.numel(), products),
+                        library))
 
     log("  the tool's run: python -m mimo_tpu_torch.tools.ablate_flash")
     AB.run.launches = 0
@@ -617,6 +782,10 @@ def main() -> None:
         calibrate()
         return
     entries = phase_kernels()
+    if sys.argv[1:] == ["--kernels"]:
+        gemm_breakdown()
+        print(json.dumps({"kernels": entries}))
+        return
     ablation, ablation_launches = phase_ablation()
     launches = phase_main_path()
     launches.update(ablation_launches)
@@ -626,7 +795,10 @@ def main() -> None:
                         "source": e["source"], "replaces": e["replaces"],
                         "shape": e["shape"], "launches": launches[e["name"]],
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                        "plain_ms": e["plain_ms"]})
+                        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                        "bound_by": e["bound_by"],
+                        "library_ms": e["library_ms"],
+                        "library": e["library"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,105 +14,231 @@
 //   optional per-frame positional encoding added after the rounding (row r
 //   belongs to frame (r / pe_div) % pe_frames), into a bf16 workspace;
 // - gemm_kernel, the tile core, with its epilogue: + bias (optional),
-//   + bias + residual, or GEGLU: the block's 128 tile columns are 64 value
-//   columns and the 64 matching gate columns (weight columns j and
-//   inner + j), and it writes h * gelu_erf(gate).
+//   + bias + residual, or GEGLU: a tile's kBN weight rows are kBN/2 value
+//   columns and the kBN/2 matching gate columns, and it writes
+//   h * gelu_erf(gate).
 //
 // Numerics follow the Pallas kernels: the product is rounded to bf16 before
 // the bias; each following add and the gate multiply round to bf16; gelu is
 // exact (erf) in fp32.
 //
-// What bounds it on an H100: the main path's shapes are tall (up to 301056
-// rows) and narrow (K and N from 320 to 5120), so the work is tensor-core
-// FLOPs over many row tiles with the weight (at most 26 MB) resident in L2.
-// The design: one block of 8 warps per 128 x 128 output tile, each warp a
-// 64 x 32 sub-tile of mma.sync m16n8k16; a 3-stage cp.async pipeline over
-// 32-deep K tiles; A fragments by ldmatrix, B fragments by ldmatrix.trans
-// straight from the row-major (K, N) weight; blocks of one row tile run
-// next to each other so A is read from HBM about once. The epilogue stages
-// the bf16 tile in shared memory and writes 16-byte vectors. wgmma and TMA
-// are later work.
+// What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s, each input read
+// once and each output written once): the main path's products are tall
+// (up to 301056 rows) and narrow (K and N from 320 to 5120). At UNet level
+// 0 (K = N = 320) a product does ~160 FLOP per byte it must move, below the
+// card's ~295, so the out-projection (0.115 ms bound for 385 MB), its
+// residual form (0.173 ms) and LN + q|k|v (0.230 ms) are bound by bytes;
+// the LN + GEGLU FFN (740 GFLOP, 0.748 ms) and every product at level 2
+// (R = 19200, C = 1280: FFN 0.763 ms, q|k|v 0.191 ms, 0.064 ms for a
+// (C, C) product) by tensor-core operations. The earlier core (warp-level
+// m16n8k16 products from 8 warps, per-thread 16-byte async copies with a
+// __syncthreads per 32-deep K tile, a block per 128 x 128 tile) reached
+// 17-35% of those bounds: it was bound by instruction issue.
+//
+// The design:
+// - wgmma.mma_async, the only path to the full tensor-core rate, on
+//   128 x 160 tiles (two m64n160k16 products a 16-deep step, one group in
+//   flight);
+// - a producer warpgroup (one thread) keeps TMA loads
+//   (cp.async.bulk.tensor) of 128 x 64 A tiles and 160 x 64 weight tiles in
+//   flight through a ring of 5 stages, one full / empty mbarrier pair per
+//   stage, and gives its registers to the consumers (setmaxnreg). The roles
+//   split once and never meet again;
+// - two consumer warpgroups in ping-pong: each takes every other tile of
+//   the block, all 128 rows, so one warpgroup's epilogue runs while the
+//   other's products do (at level 0, K = 320 gives a tile only 5 stages of
+//   products, and the epilogue is as long). A turn barrier pair orders
+//   their products;
+// - both operands K-major with the 128-byte swizzle (64 bf16 = one swizzle
+//   span per row). The weight is read from a copy prepared once per
+//   parameter by ops/ffn.py: transposed to (N, K), zero-padded to whole
+//   tiles and, for GEGLU, with each tile's value and gate columns side by
+//   side, so one TMA box brings both and one thread holds a value column
+//   and its gate column in its accumulators;
+// - one tile width, kBN = 160: every N of the main path is a multiple
+//   (N = 320 is 2 tiles, GEGLU's 1280 value columns 16 tiles of 80), so no
+//   tile is padding there; other N pad their last tile;
+// - a persistent grid, one block per SM, walks the tiles with the tiles of
+//   one row tile next to each other (A comes from HBM about once); the ring
+//   runs across tiles, so the next tile's loads overlap this one's epilogue;
+// - the epilogue rounds the accumulators, adds the bias (read into shared
+//   memory before the tile's products) or applies GEGLU, stages 64 rows at
+//   a time in shared memory and writes them (adding the residual) in
+//   16-byte vectors, a warp's stores side by side;
+// - ragged edges: TMA zero-fills loads past M and K; the epilogue masks
+//   rows past M and columns past N.
+//
+// On an H100 (700 W) this reaches 49-62% of the bound at level 2 and
+// 34-68% at level 0, where the epilogue still adds to the loads' time
+// instead of hiding behind them (PERF.md, Findings).
 //
 // The LN prologue is its own pass (one warp per row: one read of A, one
 // write of the normalised rows) and not a step inside the tile core: done
-// in the core, every column block normalised its A tiles again (8 to 80
-// times over on the main path's N) and the pass held the tensor cores
-// behind two barriers per K tile — the LN + QKV product at K = 320 took
-// 1.9x the time of the product alone.
+// in the core, every column block would normalise its A tiles again (8 to
+// 80 times over on the main path's N).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3, kThreads = 256;
-constexpr int kAS = kBK + 8;  // A smem row stride (elements)
-constexpr int kBS = kBN + 8;  // B smem row stride
-constexpr int kCS = kBN + 8;  // output staging row stride
-constexpr int kATile = kBM * kAS;
-constexpr int kBTile = kBK * kBS;
-constexpr int kStageElems = kATile + kBTile;
-constexpr int kPipeBytes = kStages * kStageElems * 2;
-constexpr int kSmemBytes = kPipeBytes;
-static_assert(kBM * kCS * 2 <= kPipeBytes, "output staging fits the pipeline");
+constexpr int kBM = 128;             // rows of a tile
+constexpr int kBN = 160;             // weight rows of a tile: the wgmma N
+constexpr int kBK = 64;              // K depth of a stage: 128 bytes of bf16
+constexpr int kThreads = 384;        // producer + two consumer warpgroups
+constexpr int kABytes = kBM * kBK * 2;
+constexpr int kBBytes = kBN * kBK * 2;
+// per consumer warpgroup: a staged (64, kBN + 8) bf16 output block and its
+// tile's kBN bias values
+constexpr int kStagingBytes = 2 * (64 * (kBN + 8) + kBN) * 2;
+// the ring (a stage: an A and a weight tile and their full / empty
+// mbarriers) as deep as 227 KB of dynamic shared memory holds beside the
+// two turn mbarriers, the staging and 1 KB of alignment slack
+constexpr int kSmemLimit = 232448;
+constexpr int kStages =
+    (kSmemLimit - 16 - kStagingBytes - 1024) / (kABytes + kBBytes + 16);
+constexpr int kSmemBytes =
+    kStages * (kABytes + kBBytes + 16) + 16 + kStagingBytes + 1024;
+static_assert(kStages >= 2 && kSmemBytes <= kSmemLimit,
+              "the ring must be at least double-buffered within 227 KB");
 
 enum Epilogue { kEpiBias = 0, kEpiBiasRes = 1, kEpiGeglu = 2 };
 
-struct GemmArgs {
-  const __nv_bfloat16* a;
-  const __nv_bfloat16* w;
+struct EpiArgs {
   const __nv_bfloat16* bias;
   const __nv_bfloat16* res;
   __nv_bfloat16* out;
-  long long lda, ldw, ldr, ldo;
-  int m, n, k;
+  long long ldr, ldo;
+  int m, n, k;      // output rows, output (value) columns, depth
+  int col_tiles;    // tiles across N
+  int tiles;        // row tiles x col_tiles
   int epilogue;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// wait for the completion of the barrier's phase of parity `parity`; a wait
+// of 2^35 cycles (~17 s) is a lost arrival, not a slow load: trap, so the
+// launch fails instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// TMA: the (c0 = column, c1 = row) box of `map` into shared memory at dst;
+// completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 128-byte
+// swizzle: rows of 128 bytes in 8-row atoms of 1024 bytes (SBO), the
+// leading offset unused by this layout, start address in 16-byte units.
+// Adding 2 moves the start 32 bytes (16 bf16) along K inside the atom.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return ((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int D>
+__device__ __forceinline__ void fence_acc(float (&d)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
+// D (64 x 160, fp32, 80 registers a thread) (+)= A (64 x 16) . B (16 x 160),
+// both from shared memory, K-major; scale_d == 0 overwrites D
+#define MIMO_ACC8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[kBN / 2],
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      : MIMO_ACC8(0), MIMO_ACC8(8), MIMO_ACC8(16), MIMO_ACC8(24),
+        MIMO_ACC8(32), MIMO_ACC8(40), MIMO_ACC8(48), MIMO_ACC8(56),
+        MIMO_ACC8(64), MIMO_ACC8(72)
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ float bf(float x) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float2 ld_bf2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st_bf2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ float geglu(float h, float g, float bh, float bg) {
+  const float up_h = bf(bf(h) + bh);
+  const float up_g = bf(bf(g) + bg);
+  return up_h * bf(0.5f * up_g * (1.f + erff(up_g * 0.7071067811865476f)));
 }
 
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
@@ -182,171 +308,316 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2) gemm_kernel(const GemmArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+__device__ __forceinline__ void consumer_sync(int cw) {  // one warpgroup
+  asm volatile("bar.sync %0, 128;\n" :: "r"(cw + 1) : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * kBM;
-  const bool geglu = a.epilogue == kEpiGeglu;
-  // output columns of this block: kBN, or kBN / 2 value columns for GEGLU
-  const int n0 = blockIdx.x * (geglu ? kBN / 2 : kBN);
-  const int kt_count = (a.k + kBK - 1) / kBK;
-
-  // tile column c (a multiple of 8) -> weight column, or -1 past the edge
-  auto weight_col = [&](int c) {
-    if (!geglu) return n0 + c < a.n ? n0 + c : -1;
-    const int j = c & (kBN / 2 - 1);
-    if (n0 + j >= a.n) return -1;
-    return (c >= kBN / 2 ? a.n : 0) + n0 + j;
-  };
-
-  auto load_tile = [&](int kt, int stage) {
-    __nv_bfloat16* as = pipe + stage * kStageElems;
-    __nv_bfloat16* bs = as + kATile;
-    const int k0 = kt * kBK;
+// Copy a staged (64, W) bf16 block (row stride S) to out rows row0 ..,
+// columns n0 .., 16 bytes a thread and a warp's stores side by side; for
+// kEpiBiasRes add the residual, read in the same pattern with every load
+// issued before the first store
+template <int W, int S>
+__device__ __forceinline__ void copy_out(const EpiArgs& e,
+                                         const __nv_bfloat16* st, int row0,
+                                         int n0) {
+  constexpr int kVecs = W / 8, kPer = 64 * kVecs / 128;
+  const int tid = threadIdx.x & 127;
+  const bool res = e.epilogue == kEpiBiasRes;
+  uint4 rv[kPer];
 #pragma unroll
-    for (int i = tid; i < kBM * kBK / 8; i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const bool ok = m0 + r < a.m && k0 + c < a.k;
-      const __nv_bfloat16* src = ok ? a.a + (m0 + r) * a.lda + k0 + c : a.a;
-      cp_async16(as + r * kAS + c, src, ok);
-    }
-#pragma unroll
-    for (int i = tid; i < kBK * kBN / 8; i += kThreads) {
-      const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-      const int wc = weight_col(c);
-      const bool ok = k0 + r < a.k && wc >= 0;
-      const __nv_bfloat16* src = ok ? a.w + (k0 + r) * a.ldw + wc : a.w;
-      cp_async16(bs + r * kBS + c, src, ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < kt_count) load_tile(s, s);
-    cp_async_commit();
+  for (int j = 0; j < kPer; ++j) {
+    const int v = tid + 128 * j;
+    const int r = row0 + v / kVecs, c = n0 + v % kVecs * 8;
+    rv[j] = make_uint4(0, 0, 0, 0);
+    if (res && r < e.m && c < e.n)
+      rv[j] = __ldg(reinterpret_cast<const uint4*>(e.res + r * e.ldr + c));
   }
-
-  float acc[4][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < kPer; ++j) {
+    const int v = tid + 128 * j, rl = v / kVecs, cl = v % kVecs * 8;
+    const int r = row0 + rl, c = n0 + cl;
+    if (r >= e.m || c >= e.n) continue;
+    uint4 y = *reinterpret_cast<const uint4*>(st + rl * S + cl);
+    if (res) {
+      float f[8], q[8];
+      unpack8(y, f);
+      unpack8(rv[j], q);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int kt = 0; kt < kt_count; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int stage = kt % kStages;
-    __nv_bfloat16* as = pipe + stage * kStageElems;
-    const __nv_bfloat16* bs = as + kATile;
-
-    const int nxt = kt + kStages - 1;
-    if (nxt < kt_count) load_tile(nxt, nxt % kStages);
-    cp_async_commit();
-
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], as + (wm + i * 16 + (lane & 15)) * kAS + kk * 16 +
-                               (lane >> 4) * 8);
-      uint32_t bfr[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4_trans(bfr[j], bs + (kk * 16 + (lane & 15)) * kBS + wn +
-                                      j * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_16816(acc[i][j], af[i], bfr[j >> 1][(j & 1) * 2],
-                    bfr[j >> 1][(j & 1) * 2 + 1]);
+      for (int i = 0; i < 8; ++i) f[i] += q[i];
+      y = pack8(f);
     }
+    *reinterpret_cast<uint4*>(e.out + r * e.ldo + c) = y;
   }
-  cp_async_wait<0>();
-  __syncthreads();
+}
 
-  // stage bf16(acc) — the dot product rounded as the Pallas kernels do
-  __nv_bfloat16* cs = pipe;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = wm + i * 16 + g, c = wn + j * 8 + t * 2;
-      *reinterpret_cast<__nv_bfloat162*>(cs + r * kCS + c) =
-          __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(cs + (r + 8) * kCS + c) =
-          __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
-    }
-  __syncthreads();
+// The bias of tile col_tile into sb (kBN values, 0 past N or without bias;
+// GEGLU: the kBN/2 value columns' bias, then their gate columns'), one
+// pair a thread. Run before the warpgroup's turn at the tensor cores, so
+// the loads wait while the other warpgroup's products run.
+__device__ __forceinline__ void load_bias(const EpiArgs& e, int col_tile,
+                                          __nv_bfloat16* sb) {
+  const int p = threadIdx.x & 127;
+  if (p >= kBN / 2) return;
+  const bool geglu = e.epilogue == kEpiGeglu, gate = geglu && p >= kBN / 4;
+  const int c =
+      col_tile * (geglu ? kBN / 2 : kBN) + 2 * p - (gate ? kBN / 2 : 0);
+  uint32_t v = 0;
+  if (e.bias != nullptr && c < e.n)
+    v = __ldg(reinterpret_cast<const unsigned int*>(e.bias + (gate ? e.n : 0) +
+                                                    c));
+  reinterpret_cast<uint32_t*>(sb)[p] = v;
+}
 
-  if (geglu) {
-    for (int i = tid; i < kBM * kBN / 16; i += kThreads) {
-      const int r = i / (kBN / 16), c = (i % (kBN / 16)) * 8;
-      const int gr = m0 + r, gc = n0 + c;
-      if (gr >= a.m || gc >= a.n) continue;
-      float h[8], gt[8], bh[8], bg[8], o[8];
-      unpack8(*reinterpret_cast<const uint4*>(cs + r * kCS + c), h);
-      unpack8(*reinterpret_cast<const uint4*>(cs + r * kCS + kBN / 2 + c), gt);
-      unpack8(ldg16(a.bias + gc), bh);
-      unpack8(ldg16(a.bias + a.n + gc), bg);
+// The epilogue of 64 rows (row0 ..) of consumer cw's tile: bias or GEGLU
+// in registers, the bf16 result staged in shared memory (rows of kBN + 8
+// values: the pad keeps these writes free of bank conflicts), then
+// copy_out. Accumulator register 4i + 2h + j of a thread holds row
+// 16 warp + lane/4 + 8h, column 8i + 2 (lane % 4) + j of the 64 rows.
+__device__ __forceinline__ void epilogue(const EpiArgs& e,
+                                         float (&acc)[kBN / 2],
+                                         const __nv_bfloat16* sb,
+                                         __nv_bfloat16* st, int row0,
+                                         int col_tile, int cw) {
+  constexpr int S = kBN + 8;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int rl = warp * 16 + (lane >> 2), c_in = (lane & 3) * 2;
+  consumer_sync(cw);  // the last copy_out is done with `st`
+  if (e.epilogue == kEpiGeglu) {
+    constexpr int kHalf = kBN / 2;
+    const int n0 = col_tile * kHalf;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float up_h = bf(h[e] + bh[e]);
-        const float up_g = bf(gt[e] + bg[e]);
-        const float gel = 0.5f * up_g * (1.f + erff(up_g * 0.7071067811865476f));
-        o[e] = up_h * bf(gel);
+    for (int i = 0; i < kHalf / 8; ++i) {
+      const int cl = i * 8 + c_in, c = n0 + cl;
+      if (c >= e.n) continue;
+      const float2 bh = ld_bf2(sb + cl), bg = ld_bf2(sb + kHalf + cl);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // value column c and its gate column sit kHalf / 8 groups apart
+        const int vi = 4 * i + 2 * h, gi = 4 * (i + kHalf / 8) + 2 * h;
+        st_bf2(st + (rl + 8 * h) * S + cl, geglu(acc[vi], acc[gi], bh.x, bg.x),
+               geglu(acc[vi + 1], acc[gi + 1], bh.y, bg.y));
       }
-      *reinterpret_cast<uint4*>(a.out + gr * a.ldo + gc) = pack8(o);
     }
+    consumer_sync(cw);
+    copy_out<kHalf, S>(e, st, row0, n0);
     return;
   }
-  for (int i = tid; i < kBM * kBN / 8; i += kThreads) {
-    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8;
-    const int gr = m0 + r, gc = n0 + c;
-    if (gr >= a.m || gc >= a.n) continue;
-    float y[8];
-    unpack8(*reinterpret_cast<const uint4*>(cs + r * kCS + c), y);
-    if (a.bias != nullptr) {
-      float b[8];
-      unpack8(ldg16(a.bias + gc), b);
+  const int n0 = col_tile * kBN;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) y[e] = bf(y[e] + b[e]);
-    }
-    if (a.epilogue == kEpiBiasRes) {
-      float rv[8];
-      unpack8(ldg16(a.res + gr * a.ldr + gc), rv);
+  for (int i = 0; i < kBN / 8; ++i) {
+    const int cl = i * 8 + c_in, c = n0 + cl;
+    if (c >= e.n) continue;
+    const float2 b = ld_bf2(sb + cl);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) y[e] += rv[e];
+    for (int h = 0; h < 2; ++h) {
+      // the product rounded to bf16, then + bias rounded (copy_out adds
+      // the residual)
+      float y0 = bf(acc[4 * i + 2 * h]), y1 = bf(acc[4 * i + 2 * h + 1]);
+      if (e.bias != nullptr) {
+        y0 = bf(y0 + b.x);
+        y1 = bf(y1 + b.y);
+      }
+      st_bf2(st + (rl + 8 * h) * S + cl, y0, y1);
     }
-    *reinterpret_cast<uint4*>(a.out + gr * a.ldo + gc) = pack8(y);
   }
+  consumer_sync(cw);
+  copy_out<kBN, S>(e, st, row0, n0);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, const EpiArgs e) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment (the launch asks 1 KB more)
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* a_ring = smem;
+  unsigned char* b_ring = smem + kStages * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_ring + kStages * kBBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* turn = empty + kStages;  // turn[cw]: the other's products done
+  __nv_bfloat16* staging = reinterpret_cast<__nv_bfloat16*>(turn + 2);
+  const int kt_count = (e.k + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty[s], 1);  // the consuming warpgroup's release
+    }
+    mbar_init(&turn[0], 1);
+    mbar_init(&turn[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load of the block, k
+    // step by k step through the block's tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < e.tiles; t += gridDim.x) {
+        const int row0 = t / e.col_tiles * kBM;
+        const int col0 = t % e.col_tiles * kBN;
+        for (int kt = 0; kt < kt_count; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // passes at once on lap 0
+          mbar_expect_tx(&full[stage], kABytes + kBBytes);
+          tma_load(a_ring + stage * kABytes, &map_a, kt * kBK, row0,
+                   &full[stage]);
+          tma_load(b_ring + stage * kBBytes, &map_b, kt * kBK, col0,
+                   &full[stage]);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups, ping-pong: cw takes the block's tiles j = cw,
+    // cw + 2, ..., all 128 rows of each (two m64 products a k step), so one
+    // warpgroup's epilogue runs while the other's products do. They take
+    // turns: a tile's products start once the other warpgroup has passed
+    // every wait of its previous tile, so each full barrier a warpgroup
+    // waits on is at most one phase ahead (a parity wait cannot tell two)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const bool leader = threadIdx.x % 128 == 0;
+    __nv_bfloat16* st = staging + cw * 64 * (kBN + 8);
+    __nv_bfloat16* sb = staging + 2 * 64 * (kBN + 8) + cw * kBN;
+    for (int j = cw, t = blockIdx.x + cw * gridDim.x; t < e.tiles;
+         j += 2, t += 2 * gridDim.x) {
+      const int row0 = t / e.col_tiles * kBM, col_tile = t % e.col_tiles;
+      load_bias(e, col_tile, sb);
+      if (j > 0) mbar_wait(&turn[cw], ((j - 1) >> 1) & 1);
+      // set per tile, so the registers are free during the epilogue (the
+      // first product overwrites them: scale_d = 0)
+      float acc0[kBN / 2], acc1[kBN / 2];
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) acc0[i] = acc1[i] = 0.f;
+      int prev = -1;
+      for (int kt = 0, g = j * kt_count; kt < kt_count; ++kt, ++g) {
+        // k step g of the block's sequence sits in stage g % kStages, on
+        // that stage's (g / kStages)-th use
+        const int stage = g % kStages;
+        mbar_wait(&full[stage], (g / kStages) & 1);
+        const uint64_t da = smem_desc(a_ring + stage * kABytes);
+        const uint64_t db = smem_desc(b_ring + stage * kBBytes);
+        fence_acc(acc0);
+        fence_acc(acc1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          // rows 64 .. 127 start 8 KB (512 in 16-byte units) further on
+          wgmma_m64n160k16(acc0, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+          wgmma_m64n160k16(acc1, da + 512 + 2 * kk, db + 2 * kk,
+                           (kt | kk) != 0);
+        }
+        wgmma_commit();
+        // the previous stage's products are done: hand its buffers back
+        wgmma_wait<1>();
+        fence_acc(acc0);
+        fence_acc(acc1);
+        if (prev >= 0 && leader) mbar_arrive(&empty[prev]);
+        prev = stage;
+      }
+      if (leader) mbar_arrive(&turn[cw ^ 1]);
+      wgmma_wait<0>();
+      fence_acc(acc0);
+      fence_acc(acc1);
+      if (leader) mbar_arrive(&empty[prev]);
+      epilogue(e, acc0, sb, st, row0, col_tile, cw);
+      epilogue(e, acc1, sb, st, row0 + 64, col_tile, cw);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a libcuda entry point, fetched through the
+// runtime so the library needs no link against libcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// TMA map of a row-major bf16 (rows, cols) matrix with row stride ld,
+// read in (box_rows, 64) boxes with the 128-byte swizzle; loads past the
+// edges are zero-filled
+bool make_map(CUtensorMap* map, const void* base, long long rows,
+              long long cols, long long ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
+           const EpiArgs& e, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = e.tiles < sms ? e.tiles : sms;
+  gemm_kernel<<<grid, kThreads, kSmemBytes, st>>>(map_a, map_b, e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (m, n) = epilogue(prologue(a (m, k)) . w (k, n or 2n)). Returns a
-// cudaError_t code (0 on success). ln_scale == nullptr: no prologue;
-// otherwise ln_out is an (m, k) bf16 workspace that receives the normalised
-// rows, and the product reads it. pe may be nullptr. epilogue: 0 = + bias
-// (bias may be nullptr), 1 = + bias + res, 2 = GEGLU over w's
-// [value | gate] column halves.
-int mimo_gemm_fwd(const void* a, long long lda, const void* w, long long ldw,
-                  const void* bias, const void* res, long long ldr, void* out,
-                  long long ldo, int m, int n, int k, const void* ln_scale,
-                  const void* ln_bias, void* ln_out, float eps,
-                  const void* pe, int pe_div, int pe_frames, int epilogue,
-                  void* stream) {
-  if (m < 1 || n < 1 || k < 1 || n % 8 || k % 8 || lda % 8 || ldw % 8 ||
-      ldo % 8 || ldr % 8 || epilogue < 0 || epilogue > 2 ||
+// out (m, n) = epilogue(prologue(a (m, k)) . W). Returns a cudaError_t code
+// (0 on success).
+//
+// w is the weight as ops/ffn.py::prepare_weight lays it out: (col_tiles *
+// 160, k) bf16, row-major, with col_tiles = ceil(n / 160), or
+// ceil(n / 80) for GEGLU, whose tile j holds value columns 80 j .. and then
+// the matching gate columns.
+//
+// ln_scale == nullptr: no prologue; otherwise ln_out is an (m, k) bf16
+// workspace that receives the normalised rows, and the product reads it. pe
+// may be nullptr. epilogue: 0 = + bias (bias may be nullptr), 1 = + bias +
+// res, 2 = GEGLU, with bias (2n,) in the unprepared [value | gate] order.
+int mimo_gemm_fwd(const void* a, long long lda, const void* w,
+                  const void* bias, const void* res, long long ldr,
+                  void* out, long long ldo, int m, int n, int k,
+                  const void* ln_scale, const void* ln_bias, void* ln_out,
+                  float eps, const void* pe, int pe_div, int pe_frames,
+                  int epilogue, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || n % 8 || k % 8 || lda % 8 || ldo % 8 ||
+      ldr % 8 || epilogue < 0 || epilogue > 2 ||
       (epilogue == kEpiGeglu && bias == nullptr) ||
       (epilogue == kEpiBiasRes && res == nullptr) ||
       (ln_scale != nullptr && (ln_bias == nullptr || ln_out == nullptr)) ||
@@ -365,22 +636,24 @@ int mimo_gemm_fwd(const void* a, long long lda, const void* w, long long ldw,
     a = ln_out;
     lda = k;
   }
-  GemmArgs g;
-  g.a = static_cast<const __nv_bfloat16*>(a);
-  g.w = static_cast<const __nv_bfloat16*>(w);
-  g.bias = static_cast<const __nv_bfloat16*>(bias);
-  g.res = static_cast<const __nv_bfloat16*>(res);
-  g.out = static_cast<__nv_bfloat16*>(out);
-  g.lda = lda; g.ldw = ldw; g.ldr = ldr; g.ldo = ldo;
-  g.m = m; g.n = n; g.k = k;
-  g.epilogue = epilogue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int cols = epilogue == kEpiGeglu ? kBN / 2 : kBN;
-  const dim3 grid((n + cols - 1) / cols, (m + kBM - 1) / kBM);
-  gemm_kernel<<<grid, kThreads, kSmemBytes, st>>>(g);
-  return static_cast<int>(cudaGetLastError());
+  const int tile_cols = epilogue == kEpiGeglu ? kBN / 2 : kBN;
+  EpiArgs e;
+  e.bias = static_cast<const __nv_bfloat16*>(bias);
+  e.res = static_cast<const __nv_bfloat16*>(res);
+  e.out = static_cast<__nv_bfloat16*>(out);
+  e.ldr = ldr;
+  e.ldo = ldo;
+  e.m = m;
+  e.n = n;
+  e.k = k;
+  e.col_tiles = (n + tile_cols - 1) / tile_cols;
+  e.tiles = (m + kBM - 1) / kBM * e.col_tiles;
+  e.epilogue = epilogue;
+  CUtensorMap map_a, map_b;
+  if (!make_map(&map_a, a, m, k, lda, kBM) ||
+      !make_map(&map_b, w, (long long)e.col_tiles * kBN, k, k, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(map_a, map_b, e, st);
 }
 
 }  // extern "C"

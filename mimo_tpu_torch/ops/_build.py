@@ -43,7 +43,7 @@ _SIGNATURES = {
         [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P], _I),
     "mimo_group_norm_fwd": ([_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
     "mimo_gemm_fwd": (
-        [_P, _L, _P, _L, _P, _P, _L, _P, _L] + [_I] * 3
+        [_P, _L, _P, _P, _P, _L, _P, _L] + [_I] * 3
         + [_P, _P, _P, _F, _P] + [_I] * 3 + [_P], _I),
     "mimo_temporal_attention_fwd": ([_P, _P] + [_I] * 5 + [_F, _P], _I),
     "mimo_flash_ablate_fwd": (

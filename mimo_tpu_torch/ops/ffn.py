@@ -14,6 +14,10 @@ bias + residual or GEGLU epilogue:
 - ``matmul_bias_residual``: ``res + x·W + b`` (``_matmul_res_pallas``/``_snc``);
 - ``matmul_bias``: ``x·W + b`` (``_matmul_pallas``/``_snc``).
 
+The tile core reads each weight as a K-major copy cut into tiles
+(``prepare_weight``), made once per parameter and kept while the parameter
+lives unchanged. The plain versions read the parameter tree as it is.
+
 The SNC layout variants existed for XLA's conv layouts and have no
 counterpart: PyTorch hands the token tensors over row-major.
 
@@ -29,9 +33,11 @@ that launched it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import weakref
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from mimo_tpu_torch.models.layers import geglu_ff, layer_norm, linear
 from mimo_tpu_torch.ops import _build
@@ -67,6 +73,73 @@ def matmul_bias_plain(x: torch.Tensor, lin_p: Params) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the prepared weight: what the CUDA tile core reads
+# ---------------------------------------------------------------------------
+
+# weight rows of a tile, the wgmma N (kBN in csrc/gemm.cu): for GEGLU 80
+# value columns and their 80 gate columns
+TILE_N = 160
+
+
+def col_tiles(n: int, geglu: bool = False) -> int:
+    """Tiles across n output columns (value columns with ``geglu``). Every
+    N of the main path is a whole number of tiles; other N pad the last."""
+    return -(-n // (TILE_N // 2 if geglu else TILE_N))
+
+
+def prepare_weight(ws: Sequence[torch.Tensor],
+                   geglu: bool = False) -> torch.Tensor:
+    """The weight as the tile core reads it: the (K, ·) weights ``ws``
+    side by side (q|k|v), transposed to K-major (col_tiles·TILE_N, K) and
+    zero-padded to whole tiles. For GEGLU (``ws`` one (K, 2n) [value |
+    gate] weight) tile j holds value columns j·TILE_N/2 …
+    (j+1)·TILE_N/2 − 1, then their gate columns, so one load brings
+    both."""
+    w = torch.cat(list(ws), dim=1) if len(ws) > 1 else ws[0]
+    k = w.shape[0]
+    if geglu:
+        n, cols = w.shape[1] // 2, TILE_N // 2
+        parts = (w[:, :n], w[:, n:])
+    else:
+        n, cols = w.shape[1], TILE_N
+        parts = (w,)
+    tiles = col_tiles(n, geglu)
+    parts = [F.pad(p, (0, tiles * cols - n)).reshape(k, tiles, 1, cols)
+             for p in parts]
+    return torch.cat(parts, dim=2).reshape(k, tiles * TILE_N).t().contiguous()
+
+
+# (tag, id of each source) -> (weak refs, versions, derived tensor)
+_DERIVED: Dict[tuple, tuple] = {}
+
+
+def _once(tensors: Sequence[torch.Tensor], tag, build):
+    """build(), once per set of source tensors and tag: the result is kept
+    while the sources live and stay unchanged (same objects, same
+    ``_version``), so each parameter is prepared once, not per call.
+    Inference tensors keep no version, so a change made in place could not
+    be seen: they are refused (make parameters outside inference mode)."""
+    for t in tensors:
+        if t.is_inference():
+            raise ValueError(
+                "gemm kernel: a weight or vector the kernel reads in its own "
+                "layout is an inference tensor, whose in-place changes cannot "
+                "be tracked; create the parameters outside "
+                "torch.inference_mode")
+    key = (tag,) + tuple(id(t) for t in tensors)
+    versions = tuple(t._version for t in tensors)
+    hit = _DERIVED.get(key)
+    if (hit is not None and hit[1] == versions
+            and all(r() is t for r, t in zip(hit[0], tensors))):
+        return hit[2]
+    value = build()
+    refs = tuple(weakref.ref(t, lambda _, key=key: _DERIVED.pop(key, None))
+                 for t in tensors)
+    _DERIVED[key] = (refs, versions, value)
+    return value
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
@@ -83,36 +156,48 @@ def _rows(x: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def _vec(t: Optional[torch.Tensor], n: int, dev) -> Optional[torch.Tensor]:
+    """A bias / LN / PE tensor as the kernel reads it: bf16, contiguous,
+    on ``dev`` (converted once per parameter where it is not)."""
     if t is None:
         return None
-    if t.numel() != n:
-        raise ValueError(f"gemm kernel: vector of {t.numel()} values, "
+    if t.shape[-1] != n:
+        raise ValueError(f"gemm kernel: vector of {t.shape[-1]} values, "
                          f"expected {n}")
-    return t.to(device=dev, dtype=torch.bfloat16).contiguous()
+    if t.device == dev and t.dtype == torch.bfloat16 and t.is_contiguous():
+        return t
+    return _once((t,), ("vec", dev),
+                 lambda: t.to(device=dev, dtype=torch.bfloat16).contiguous())
 
 
-def gemm(a: torch.Tensor, w: torch.Tensor, *,
-         bias: Optional[torch.Tensor] = None,
+def gemm(a: torch.Tensor, w, *, bias: Optional[torch.Tensor] = None,
          res: Optional[torch.Tensor] = None, geglu: bool = False,
          ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
          pe: Optional[torch.Tensor] = None, pe_div: int = 1) -> torch.Tensor:
     """(R, n) = epilogue(prologue(a) · w) through ``mimo_gemm_fwd``: the
     tile core, after the LayerNorm row kernel when ``ln`` is given.
 
-    a: (..., K) bf16 CUDA; w: (K, n), or (K, 2n) with ``geglu`` (value
-    columns, then gate columns); ``ln = (scale, bias, eps)`` normalises each
-    row of a first (into an (R, K) workspace); ``pe`` (F, K) is added to the
+    a: (..., K) bf16 CUDA; w: (K, n), a tuple of (K, ·) weights read side
+    by side, or (K, 2n) with ``geglu`` (value columns, then gate columns),
+    all bf16 CUDA, in the JAX layout (the K-major copy the core reads is
+    made once per weight); ``ln = (scale, bias, eps)`` normalises each row
+    of a first (into an (R, K) workspace); ``pe`` (F, K) is added to the
     normalised row r, which belongs to frame (r // pe_div) % F. Epilogue:
     + bias, + bias + res (res (R, n)), or GEGLU with bias (2n,)."""
     a2 = _rows(a, "a")
     r, k = a2.shape
-    wc = _rows(w, "w")
-    if wc.shape[0] != k:
-        raise ValueError(f"gemm kernel: a has K={k}, w {tuple(w.shape)}")
-    n = wc.shape[1] // 2 if geglu else wc.shape[1]
+    ws = tuple(w) if isinstance(w, (tuple, list)) else (w,)
+    for t in ws:
+        if not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 2 \
+                or t.shape[0] != k:
+            raise ValueError(f"gemm kernel: weight {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}; expected bf16 CUDA "
+                             f"({k}, ·)")
+    n_cols = sum(t.shape[1] for t in ws)
+    n = n_cols // 2 if geglu else n_cols
     if k % 8 or n % 8:
         raise ValueError(f"gemm kernel: K={k} and N={n} must be multiples of 8")
     dev = a2.device
+    wp = _once(ws, ("tiles", geglu), lambda: prepare_weight(ws, geglu))
     bias_c = _vec(bias, 2 * n if geglu else n, dev)
     res2 = None
     if res is not None:
@@ -129,9 +214,9 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *,
         ln_out = torch.empty((r, k), dtype=torch.bfloat16, device=dev)
     pe_c = None
     if pe is not None:
-        if ln is None or pe.dim() != 2 or pe.shape[1] != k:
+        if ln is None or pe.dim() != 2:
             raise ValueError("gemm kernel: pe must be (F, K) and needs ln")
-        pe_c = pe.to(device=dev, dtype=torch.bfloat16).contiguous()
+        pe_c = _vec(pe, k, dev)
     epi = _EPI_GEGLU if geglu else (_EPI_BIAS_RES if res2 is not None
                                     else _EPI_BIAS)
     out = torch.empty((r, n), dtype=torch.bfloat16, device=dev)
@@ -140,8 +225,8 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *,
         return None if t is None else t.data_ptr()
 
     err = _build.load_library().mimo_gemm_fwd(
-        a2.data_ptr(), a2.stride(0), wc.data_ptr(), wc.stride(0), ptr(bias_c),
-        ptr(res2), res2.stride(0) if res2 is not None else 0, out.data_ptr(),
+        a2.data_ptr(), a2.stride(0), wp.data_ptr(), ptr(bias_c), ptr(res2),
+        res2.stride(0) if res2 is not None else 0, out.data_ptr(),
         out.stride(0), r, n, k, ptr(scale_c), ptr(bias_ln), ptr(ln_out),
         float(eps), ptr(pe_c), int(pe_div),
         pe_c.shape[0] if pe_c is not None else 1, epi,
@@ -150,12 +235,12 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *,
     return out
 
 
-def _w3(attn_p: Params) -> torch.Tensor:
-    """[W_q | W_k | W_v] (C, 3C) of a bias-free diffusers Attention."""
+def qkv_weights(attn_p: Params) -> Tuple[torch.Tensor, ...]:
+    """(W_q, W_k, W_v), each (C, C), of a bias-free diffusers Attention:
+    the tile core reads them side by side as one (C, 3C) weight."""
     if any("bias" in attn_p[k] for k in ("to_q", "to_k", "to_v")):
         raise ValueError("qkv kernel: to_q/to_k/to_v must be bias-free")
-    return torch.cat([attn_p[k]["kernel"] for k in ("to_q", "to_k", "to_v")],
-                     dim=1)
+    return tuple(attn_p[k]["kernel"] for k in ("to_q", "to_k", "to_v"))
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +269,7 @@ def qkv_ln_fused(x: torch.Tensor, ln_p: Params, attn_p: Params,
     if not x.is_cuda:
         return qkv_ln_plain(x, ln_p, attn_p, eps)
     c = x.shape[-1]
-    out = gemm(x, _w3(attn_p), ln=(ln_p["scale"], ln_p["bias"], eps))
+    out = gemm(x, qkv_weights(attn_p), ln=(ln_p["scale"], ln_p["bias"], eps))
     out = out.reshape(*x.shape[:-1], 3 * c)
     qkv_ln_fused.launches += 1
     return out[..., :c], out[..., c:2 * c], out[..., 2 * c:]

@@ -31,7 +31,7 @@ import torch
 
 from mimo_tpu_torch.models.layers import layer_norm, linear
 from mimo_tpu_torch.ops import _build
-from mimo_tpu_torch.ops.ffn import _w3, gemm
+from mimo_tpu_torch.ops.ffn import gemm, qkv_weights
 
 Params = Dict[str, Any]
 
@@ -89,8 +89,8 @@ def temporal_attention_ln(p_attn: Params, ln_p: Params, pe: torch.Tensor,
     if pe.shape != (f, c):
         raise ValueError(f"temporal attention: pe {tuple(pe.shape)}, "
                          f"expected ({f}, {c})")
-    qkv = gemm(x, _w3(p_attn), ln=(ln_p["scale"], ln_p["bias"], eps), pe=pe,
-               pe_div=s)
+    qkv = gemm(x, qkv_weights(p_attn), ln=(ln_p["scale"], ln_p["bias"], eps),
+               pe=pe, pe_div=s)
     o = _attention_core_cuda(qkv, b, f, s, heads)
     y = gemm(o, p_attn["to_out"]["kernel"], bias=p_attn["to_out"].get("bias"),
              res=x)

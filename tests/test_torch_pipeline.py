@@ -159,3 +159,20 @@ def test_cli_needs_cuda_after_input_checks(tmp_path, monkeypatch):
                  str(tmp_path / "tpl"), "--output", str(tmp_path / "o.mp4"),
                  "--interp", "2"])
     assert built == []
+
+
+def test_load_params_needs_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """load_params loads onto the card by default: without CUDA it raises a
+    RuntimeError naming CUDA; device='cpu' loads the bundle."""
+    from mimo_tpu_torch.entry.runner import load_params
+    path = tmp_path / "w.npz"
+    np.savez(path, **{"unet/conv_in/kernel": np.ones((3, 3, 4, 8), np.float32),
+                      "unet/conv_in/bias": np.zeros(8, np.float32)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_params(str(path))
+    tree = load_params(str(path), device="cpu", dtype=torch.float32)
+    conv = tree["unet"]["conv_in"]
+    assert conv["kernel"].device.type == "cpu"
+    assert conv["kernel"].shape == (8, 4, 3, 3)          # HWIO -> OIHW
+    assert float(conv["kernel"].sum()) == 3 * 3 * 4 * 8
