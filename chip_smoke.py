@@ -7,20 +7,26 @@ Phases, in order; any failure exits non-zero:
 1. device: fails without CUDA; prints the card's name and power limit and
    the torch / CUDA / triton / nvcc versions;
 2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc and
-   prints ptxas's registers and spills; fails if the GEMM tile core spills
-   or ptxas ignored a setmaxnreg;
+   prints ptxas's registers and spills; fails if the GEMM tile core or any
+   flash instantiation spills, or ptxas ignored a setmaxnreg;
 3. kernels: each kernel wrapper (the function the main path calls; one
    call must count one launch) against its plain PyTorch version on the
    card at the main path's shapes (ragged edges included), max error beside
    the stated tolerance; the kernel's, the plain version's and, where one
    PyTorch call computes the same function or the tile core's product(s),
    that call's time (a yardstick the port never calls), beside the bound:
-   the least time the card could take (bytes over 3.35 TB/s or operations
-   over their peak rate, the larger);
+   the least time the card could take (the larger of bytes over 3.35 TB/s
+   and operations over their peak rate; for attention the operations also
+   take the exp2 of every logit, spread over the special-function units
+   and the FMA pipes, see ``exp2_ms``); the flash kernel also at the full
+   main-path batch beside the ablation tool's ``full`` build (the first,
+   mma.sync design), and beside SDPA in interleaved rounds;
 4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``): every
    mode, in both K/V layouts, against its plain version at UNet levels 0
-   and 1 and a ragged shape; ``full`` bit-equal to the production flash
-   kernel; each stand-in mode's output moves with an input it keeps; then
+   and 1 and a ragged shape; ``full`` (the first design) and the
+   production flash kernel both within the attention tolerance of
+   ``attention_plain``; each stand-in mode's output moves with an input it
+   keeps; then
    the tool's own run (every mode timed at B=24, Sq=6272, Sk=12544, d=40)
    with its launch count read just after;
 5. main path: a small-input agreement check (card, bf16 + kernels, against
@@ -59,6 +65,20 @@ FRAMES, HEIGHT, WIDTH = 24, 512, 784
 PEAK_BF16 = 989e12   # tensor-core FLOP/s in bf16
 PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM bytes/s
+# per SM and clock on sm_90 (CUDA C++ guide, arithmetic-instruction
+# throughput table): exp2 results of the special-function unit (MUFU) and
+# fp32 operations of the FMA pipes
+SFU_PER_CLOCK, FMA_PER_CLOCK = 16, 128
+# FMA-pipe operations each logit costs beside its exp2 (the FFMA of the
+# folded scale, the add into the row sum), and the fewest an exp2 costs
+# there instead of on the MUFU: floor, fraction, two FFMAs of a degree-2
+# polynomial (relative error 1.8e-3, under bf16's half ulp of 2^-9, so
+# enough for P); the exponent's integer add runs on another pipe
+FMA_PER_LOGIT, FMA_PER_EXP2 = 2, 4
+# SM clocks a second over the card: its SM count x its maximum SM clock,
+# read in phase 1
+SM_CLOCKS = [0.0]
+FLASH_ROUNDS = 5     # interleaved kernel / SDPA rounds of phase 3
 
 
 def log(msg: str) -> None:
@@ -78,11 +98,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
-    """(ms, "bytes" or "operations"): the least time the card could take to
-    move nbytes and do flops at ``peak``, whichever is larger."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def exp2_ms(logits: float) -> float:
+    """The least time for the exp2 of ``logits`` logits and the FMA-pipe
+    work each logit needs anyway: x of the exp2s on the MUFU, the rest as
+    polynomials on the FMA pipes, x chosen so both finish together."""
+    work = logits * (FMA_PER_LOGIT + FMA_PER_EXP2)
+    rate = (FMA_PER_CLOCK + FMA_PER_EXP2 * SFU_PER_CLOCK) * SM_CLOCKS[0]
+    return work / rate * 1e3
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16,
+          logits: float = 0.0):
+    """(ms, "bytes" or "operations", what): the least time the card could
+    take to move nbytes and to do flops at ``peak`` and the exp2 of
+    ``logits`` logits, whichever is larger; what names the term that
+    decides ("bytes", "flops" or "exp2")."""
+    times = {"bytes": nbytes / PEAK_BYTES * 1e3, "flops": flops / peak * 1e3,
+             "exp2": exp2_ms(logits)}
+    what = max(times, key=times.get)
+    return times[what], "bytes" if what == "bytes" else "operations", what
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -123,6 +157,16 @@ def phase_device() -> str:
     log(f"python {sys.version.split()[0]} | torch {torch.__version__} | "
         f"cuda {torch.version.cuda} | triton {triton_v} | nvcc "
         f"{nvcc.stdout.strip().splitlines()[-1]}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(clock.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SM_CLOCKS[0] = sms * mhz * 1e6
+    log(f"{sms} SMs x {mhz:.0f} MHz (max SM clock): exp2 bound "
+        f"{exp2_ms(1e9) * 1e-3:.4g} s per 1e9 logits (MUFU alone "
+        f"{1e9 / (SFU_PER_CLOCK * SM_CLOCKS[0]):.4g} s)")
     return torch.cuda.get_device_name(0)
 
 
@@ -151,11 +195,12 @@ def phase_build() -> None:
         elif "Used" in line and "registers" in line and name:
             regs = line.split("Used")[1].split(",")[0].strip()
             log(f"  ptxas {name}: {regs}; {spills}")
-            if "gemm_kernel" in name and not spills.startswith("0 bytes"):
+            if ("gemm_kernel" in name or "flash_fwd_kernel" in name) \
+                    and not spills.startswith("0 bytes"):
                 bad.append(f"{name}: {spills}")
             name = None
     if bad:
-        raise AssertionError(f"GEMM tile core build: {bad}")
+        raise AssertionError(f"wgmma kernel build: {bad}")
 
 
 def call_wrapper(wrapper, *args, **kwargs):
@@ -173,16 +218,16 @@ def kernel_entry(name, source, replaces, label, err, run, plain, work,
                  library=None):
     """Time the wrapper, its plain version and the library yardstick
     (``library`` = (description, fn), or (reason there is none, None));
-    ``work`` = (flops, bytes[, peak]) of the function for its bound. One
-    entry of the JSON line."""
+    ``work`` = (flops, bytes[, peak[, logits]]) of the function for its
+    bound. One entry of the JSON line."""
     ms = cuda_ms(run, 10)
     plain_ms = cuda_ms(plain, 3)
     lib_what, lib_fn = library or ("no single call", None)
     library_ms = cuda_ms(lib_fn, 10) if lib_fn is not None else None
-    bound_ms, bound_by = bound(*work)
+    bound_ms, bound_by, what = bound(*work)
     log(f"    time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
         f"{'%.3f ms' % library_ms if library_ms is not None else '-'} "
-        f"({lib_what}); bound {bound_ms:.3f} ms by {bound_by} "
+        f"({lib_what}); bound {bound_ms:.3f} ms by {what} "
         f"({bound_ms / ms:.0%} of it)")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -190,25 +235,40 @@ def kernel_entry(name, source, replaces, label, err, run, plain, work,
                 library=lib_what)
 
 
-def flash_work(b, heads, d, sq, sk, n_in, products=2):
-    """FLOPs and bytes of attention: ``products`` of the two (Q.K^T, P.V)
-    at 2 FLOP a multiply-add; n_in input elements and the output, bf16."""
-    return (products * 2 * b * heads * sq * sk * d,
-            2 * (n_in + b * sq * heads * d))
+def flash_work(b, heads, d, sq, sk, n_in, products=2, exp2=True):
+    """FLOPs, bytes, peak and the logits whose exp2 is taken, of attention:
+    ``products`` of the two (Q.K^T, P.V) at 2 FLOP a multiply-add; n_in
+    input elements and the output, bf16; one exp2 a logit (none for the
+    ablation modes that drop it)."""
+    logits = b * heads * sq * sk
+    return (products * 2 * logits * d, 2 * (n_in + b * sq * heads * d),
+            PEAK_BF16, logits if exp2 else 0)
+
+
+def median_range(xs, fmt="%.3f", scale=1.0):
+    """'median (min-max)' of sorted xs, each scaled and formatted."""
+    m, lo, hi = (fmt % (x * scale) for x in (xs[len(xs) // 2], xs[0], xs[-1]))
+    return f"{m} ({lo} to {hi})"
 
 
 def sdpa_call(q, k, v, heads, bank=()):
     """F.scaled_dot_product_attention on the same q/k/v viewed as (B, H, S,
     d), the bank concatenated to the keys beforehand."""
     import torch.nn.functional as F
-    if bank:
-        b = q.shape[0]
-        k = torch.cat([k, bank[0].expand(b, -1, -1)], dim=1)
-        v = torch.cat([v, bank[1].expand(b, -1, -1)], dim=1)
+    k, v = concat_bank(k, v, bank)
     qh, kh, vh = (x.unflatten(-1, (heads, -1)).transpose(1, 2)
                   for x in (q, k, v))
     return ("F.scaled_dot_product_attention",
             lambda: F.scaled_dot_product_attention(qh, kh, vh))
+
+
+def concat_bank(k, v, bank):
+    """k and v with the bank appended to every row's keys (contiguous)."""
+    if not bank:
+        return k, v
+    b = k.shape[0]
+    return (torch.cat([k, bank[0].expand(b, -1, -1)], dim=1),
+            torch.cat([v, bank[1].expand(b, -1, -1)], dim=1))
 
 
 def phase_kernels():
@@ -220,6 +280,7 @@ def phase_kernels():
     from mimo_tpu_torch.ops import flash_attention as FA
     from mimo_tpu_torch.ops import groupnorm as GN
     from mimo_tpu_torch.ops import temporal_attention as TA
+    from mimo_tpu_torch.tools import ablate_flash as AB
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
@@ -230,23 +291,36 @@ def phase_kernels():
     entries = []
     flash_why = ("bf16 output (8-bit mantissa) and P rounded to bf16 for "
                  "P.V; reference fp32 on the same bf16 inputs")
-    # (wrapper, heads, d, batch, sq, sk1, sk2): UNet levels 0 and 1 on a
-    # 2-row batch subset, plus ragged query and key edges
+    # (wrapper, heads, d, batch, sq, sk1, sk2, views): UNet levels 0 and 1
+    # on a 2-row batch subset; ragged query and key edges; d = 64 and 160
+    # (the 64-key tiles and the 3-box tiles) with a bank of 333; banks of
+    # 777 and 333 keys (not a multiple of the 128- or 64-key tile); level 0
+    # with q/k/v as column views of one (2, 6272, 3 * 320) q|k|v result, as
+    # the main path calls it
     cases = [
-        (FA.flash_attention_nt, 8, 40, 2, 6272, 6272, 0),
-        (FA.flash_attention_nt, 8, 80, 2, 1568, 1568, 0),
-        (FA.flash_attention_nt, 8, 40, 2, 1100, 1000, 0),
-        (FA.flash_attention_nt_bank, 8, 40, 2, 6272, 6272, 6272),
-        (FA.flash_attention_nt_bank, 8, 80, 2, 1568, 1568, 1568),
-        (FA.flash_attention_nt_bank, 8, 80, 2, 1568, 1568, 777),
+        (FA.flash_attention_nt, 8, 40, 2, 6272, 6272, 0, False),
+        (FA.flash_attention_nt, 8, 80, 2, 1568, 1568, 0, False),
+        (FA.flash_attention_nt, 8, 40, 2, 1100, 1000, 0, False),
+        (FA.flash_attention_nt_bank, 8, 40, 2, 6272, 6272, 6272, False),
+        (FA.flash_attention_nt_bank, 8, 80, 2, 1568, 1568, 1568, False),
+        (FA.flash_attention_nt_bank, 8, 80, 2, 1568, 1568, 777, False),
+        (FA.flash_attention_nt_bank, 8, 64, 2, 1100, 1000, 333, False),
+        (FA.flash_attention_nt_bank, 8, 160, 2, 1100, 1000, 333, False),
+        (FA.flash_attention_nt, 8, 40, 2, 6272, 6272, 0, True),
+        (FA.flash_attention_nt_bank, 8, 40, 2, 6272, 6272, 6272, True),
     ]
-    for wrapper, heads, d, b, sq, sk1, sk2 in cases:
+    for wrapper, heads, d, b, sq, sk1, sk2, views in cases:
         inner = heads * d
         # LN-scaled activations through random projections: logits of a
         # few units, so the softmax is neither flat nor one-hot
-        q = randn(b, sq, inner, scale=2.0)
-        k = randn(b, sk1, inner, scale=2.0)
-        v = randn(b, sk1, inner)
+        if views:
+            qkv = randn(b, sq, 3 * inner, scale=2.0)
+            qkv[..., 2 * inner:] /= 2
+            q, k, v = qkv.split(inner, dim=-1)
+        else:
+            q = randn(b, sq, inner, scale=2.0)
+            k = randn(b, sk1, inner, scale=2.0)
+            v = randn(b, sk1, inner)
         bank = (randn(1, sk2, inner, scale=2.0), randn(1, sk2, inner)) \
             if sk2 else ()
         args = (q, k, v, *bank, heads)
@@ -254,7 +328,8 @@ def phase_kernels():
         torch.cuda.synchronize()
         want = FA.attention_plain(q, k, v, heads, *bank)
         label = (f"{wrapper.__name__} d={d} B={b} Sq={sq} Sk={sk1}"
-                 + (f"+bank {sk2}" if sk2 else ""))
+                 + (f"+bank {sk2}" if sk2 else "")
+                 + (" (q|k|v views)" if views else ""))
         err = check_close(label, got, want, 2e-2, 2e-2, flash_why)
         n_in = sum(t.numel() for t in (q, k, v, *bank))
         entries.append(kernel_entry(
@@ -266,19 +341,38 @@ def phase_kernels():
             flash_work(b, heads, d, sq, sk1 + sk2, n_in),
             sdpa_call(q, k, v, heads, bank)))
 
-    # the kernel alone at the full main-path batch (the uncond/cond half)
+    # the kernel against SDPA on the same inputs, at UNet levels 0 and 1 on
+    # the 2-row subset and at the full main-path batch (the uncond/cond
+    # half), timed in turns over FLASH_ROUNDS rounds: median and range of
+    # each and of the kernel's excess over SDPA a round; at B=24 also the
+    # first design (the ablation tool's ``full``, the bank concatenated)
     for wrapper, d, s in ((FA.flash_attention_nt, 40, 6272),
                           (FA.flash_attention_nt_bank, 40, 6272),
                           (FA.flash_attention_nt, 80, 1568),
                           (FA.flash_attention_nt_bank, 80, 1568)):
-        q, k, v = (randn(24, s, 8 * d) for _ in range(3))
-        bank = ((randn(1, s, 8 * d), randn(1, s, 8 * d))
-                if wrapper is FA.flash_attention_nt_bank else ())
-        ms = cuda_ms(lambda: wrapper(q, k, v, *bank, 8), 20)
-        sk = s + (s if bank else 0)
-        tflops = 4 * 24 * 8 * s * sk * d / (ms * 1e-3) / 1e12
-        log(f"  {wrapper.__name__} d={d} B=24 S={s}: kernel {ms:.3f} ms "
-            f"({tflops:.1f} TFLOP/s at the unpadded d)")
+        for b in (2, 24):
+            q, k, v = (randn(b, s, 8 * d) for _ in range(3))
+            bank = ((randn(1, s, 8 * d), randn(1, s, 8 * d))
+                    if wrapper is FA.flash_attention_nt_bank else ())
+            sdpa = sdpa_call(q, k, v, 8, bank)[1]
+            rounds = [(cuda_ms(lambda: wrapper(q, k, v, *bank, 8), 10),
+                       cuda_ms(sdpa, 10)) for _ in range(FLASH_ROUNDS)]
+            ms, sdpa_ms = (sorted(t) for t in zip(*rounds))
+            excess = sorted(a / c - 1 for a, c in rounds)
+            old = ""
+            if b == 24:
+                kc, vc = concat_bank(k, v, bank)
+                old = (f", first design "
+                       f"{cuda_ms(lambda: AB.run(q, kc, vc, 8), 10):.3f} ms")
+            sk = s + (s if bank else 0)
+            n_in = sum(t.numel() for t in (q, k, v, *bank))
+            bound_ms, _, what = bound(*flash_work(b, 8, d, s, sk, n_in))
+            log(f"  {wrapper.__name__} d={d} B={b} S={s}, {FLASH_ROUNDS} "
+                f"rounds, median (min-max): kernel {median_range(ms)} ms, "
+                f"SDPA {median_range(sdpa_ms)} ms, kernel/SDPA - 1 "
+                f"{median_range(excess, '%+.1f%%', 100)}{old}; bound "
+                f"{bound_ms:.3f} ms by {what} ({bound_ms / ms[len(ms) // 2]:.0%}"
+                f" of the median)")
 
     gn_why = ("bf16 output rounding (<= 1 ulp = 2^-7 relative) on fp32 "
               "statistics summed in another order")
@@ -502,13 +596,16 @@ def phase_ablation():
         q = randn(b, sq, heads * d, scale=2.0)
         k = randn(b, sk, heads * d, scale=2.0)
         v = randn(b, sk, heads * d)
+        # `full` is the first (mma.sync) design, no longer the production
+        # kernel: both are held to the plain version
         full = call_wrapper(AB.run, q, k, v, heads, "full")
         prod = FA.flash_attention_nt(q, k, v, heads)
-        if not torch.equal(full, prod):
-            raise AssertionError(f"run(mode='full') d={d} Sq={sq} differs "
-                                 f"from flash_attention_nt")
-        log(f"  full d={d} B={b} Sq={sq} Sk={sk}: bit-equal to "
-            f"flash_attention_nt")
+        torch.cuda.synchronize()
+        want = FA.attention_plain(q, k, v, heads)
+        for what, got in (("run(mode='full')", full),
+                          ("flash_attention_nt", prod)):
+            check_close(f"{what} d={d} B={b} Sq={sq} Sk={sk}", got, want,
+                        *attn)
         for pre in (False, True):
             lay = AB.pretranspose if pre else (lambda x: x)
             args = tuple(lay(x) for x in (q, k, v))
@@ -551,7 +648,8 @@ def phase_ablation():
                         lambda: AB.run(*args, heads, mode, pre),
                         lambda: AB.run_plain(*args, heads, mode, pre),
                         flash_work(b, heads, d, sq, sk, q.numel()
-                                   + k.numel() + v.numel(), products),
+                                   + k.numel() + v.numel(), products,
+                                   exp2=mode not in ("noexp", "nosm")),
                         library))
 
     log("  the tool's run: python -m mimo_tpu_torch.tools.ablate_flash")

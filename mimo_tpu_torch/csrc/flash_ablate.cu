@@ -3,14 +3,17 @@
 // Replaces the TPU kernel tools/ablate_flash.py::run (_kernel): a variant of
 // the transposed flash kernel that times the production math with one piece
 // removed, to split the kernel's time among its pieces. Here every build is
-// the production body (flash_attention.cuh) with one piece taken out at
-// compile time; everything else, data dependencies included, stays, so
-// `full - mode` is the cost of that piece on this card (not an exact
-// decomposition: a removed piece frees issue slots for its neighbours).
+// the first design of the flash kernel (flash_ablate.cuh: mma.sync, cp.async
+// double buffering; no longer the production kernel, which is the wgmma +
+// TMA design of flash_attention.cu) with one piece taken out at compile
+// time; everything else, data dependencies included, stays, so
+// `full - mode` is the cost of that piece of the first design on this card
+// (not an exact decomposition: a removed piece frees issue slots for its
+// neighbours).
 //
 // Modes (the TPU tool's names, with their meaning on Hopper):
-//   full     the production kernel, unchanged (bit-equal to
-//            mimo_flash_attention_fwd on the same inputs)
+//   full     the first design, unchanged (attention, within the attention
+//            tolerance of the production kernel; no longer bit-equal to it)
 //   noexp    no exp2 per logit: p = max(x - m, -16) + 16 with the running
 //            max m and the per-tile rescale kept          -> exp2 (MUFU) cost
 //   nosm     no scale, mask, row max, shuffles, rescale or exp2:
@@ -33,7 +36,7 @@
 // mimo_tpu_torch/tools/ablate_flash.py::run_plain reproduces.
 // Instantiated for the UNet's two flash widths, d = 40 and 80.
 
-#include "flash_attention.cuh"
+#include "flash_ablate.cuh"
 
 namespace {
 

@@ -1,11 +1,16 @@
-// The body of the flash attention forward kernel, shared by the production
-// kernel (flash_attention.cu) and its ablation builds (flash_ablate.cu).
+// The body of the flash ablation builds (flash_ablate.cu): the first design
+// of the flash attention forward kernel, kept as it was when it was the
+// production kernel (mma.sync m16n8k16 on 8 warps, each warp's Q fragments
+// in registers, 64-key K/V tiles double-buffered with cp.async). The
+// production kernel is now the wgmma + TMA design of flash_attention.cu;
+// this body is no longer it.
 //
-// The body is a template over an ablation mode and a K/V layout. The
-// production kernel is FlashMode::kFull over the natural layout; every other
-// instantiation removes one piece of its work and keeps the rest, data
-// dependencies included, so that the time a mode saves is the cost of the
-// piece it removes (see flash_ablate.cu for the meaning of each mode).
+// The body is a template over an ablation mode and a K/V layout.
+// FlashMode::kFull over the natural layout is the first design unchanged;
+// every other instantiation removes one piece of its work and keeps the
+// rest, data dependencies included, so that the time a mode saves is the
+// cost of the piece it removes (see flash_ablate.cu for the meaning of each
+// mode).
 
 #pragma once
 
@@ -22,7 +27,7 @@ constexpr int kThreads = 256;
 // Ablation modes; the numbers are the C interface's and
 // mimo_tpu_torch/tools/ablate_flash.py::MODES order.
 enum FlashMode : int {
-  kFull = 0,   // production math
+  kFull = 0,   // the first design's math, unchanged
   kNoExp,      // no exp2 per logit (bounded linear stand-in)
   kNoSm,       // no scale, mask, row max, rescale or exp2
   kNoPV,       // no P.V product (a column pick of P instead)

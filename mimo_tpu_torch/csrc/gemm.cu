@@ -77,10 +77,7 @@
 // in the core, every column block would normalise its A tiles again (8 to
 // 80 times over on the main path's N).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -116,112 +113,6 @@ struct EpiArgs {
   int tiles;        // row tiles x col_tiles
   int epilogue;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// wait for the completion of the barrier's phase of parity `parity`; a wait
-// of 2^35 cycles (~17 s) is a lost arrival, not a slow load: trap, so the
-// launch fails instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// TMA: the (c0 = column, c1 = row) box of `map` into shared memory at dst;
-// completion is counted in bytes on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte
-// swizzle: rows of 128 bytes in 8-row atoms of 1024 bytes (SBO), the
-// leading offset unused by this layout, start address in 16-byte units.
-// Adding 2 moves the start 32 bytes (16 bf16) along K inside the atom.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return ((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (uint64_t(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous products
-template <int D>
-__device__ __forceinline__ void fence_acc(float (&d)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// D (64 x 160, fp32, 80 registers a thread) (+)= A (64 x 16) . B (16 x 160),
-// both from shared memory, K-major; scale_d == 0 overwrites D
-#define MIMO_ACC8(i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[kBN / 2],
-                                                 uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79}, "
-      "%80, %81, p, 1, 1, 0, 0;\n}\n"
-      : MIMO_ACC8(0), MIMO_ACC8(8), MIMO_ACC8(16), MIMO_ACC8(24),
-        MIMO_ACC8(32), MIMO_ACC8(40), MIMO_ACC8(48), MIMO_ACC8(56),
-        MIMO_ACC8(64), MIMO_ACC8(72)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 __device__ __forceinline__ float bf(float x) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -510,9 +401,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk) {
           // rows 64 .. 127 start 8 KB (512 in 16-byte units) further on
-          wgmma_m64n160k16(acc0, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
-          wgmma_m64n160k16(acc1, da + 512 + 2 * kk, db + 2 * kk,
-                           (kt | kk) != 0);
+          wgmma_ss<kBN>(acc0, da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+          wgmma_ss<kBN>(acc1, da + 512 + 2 * kk, db + 2 * kk, (kt | kk) != 0);
         }
         wgmma_commit();
         // the previous stage's products are done: hand its buffers back
@@ -531,33 +421,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       epilogue(e, acc1, sb, st, row0 + 64, col_tile, cw);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a libcuda entry point, fetched through the
-// runtime so the library needs no link against libcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // TMA map of a row-major bf16 (rows, cols) matrix with row stride ld,

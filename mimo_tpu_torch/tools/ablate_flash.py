@@ -2,13 +2,17 @@
 banked shape (B=24, Sq=6272, Sk=12544 = self + bank, 8 heads, d=40).
 
 Counterpart of ``tools/ablate_flash.py``. Each mode is a build of the
-production kernel (``csrc/flash_attention.cuh``) with one piece of its work
-removed at compile time (``csrc/flash_ablate.cu`` states each mode's
-meaning on Hopper); ``full - mode`` attributes the kernel's time to that
-piece. The numbers are not an exact decomposition (a removed piece frees
-issue slots and bandwidth for its neighbours) but rank the targets.
+first design of the flash kernel (``csrc/flash_ablate.cuh``: mma.sync,
+cp.async double buffering) with one piece of its work removed at compile
+time (``csrc/flash_ablate.cu`` states each mode's meaning on Hopper);
+``full - mode`` attributes that design's time to the piece. The production
+kernel (``csrc/flash_attention.cu``, wgmma + TMA) is no longer this body.
+The numbers are not an exact decomposition (a removed piece frees issue
+slots and bandwidth for its neighbours) but rank the targets.
 
-  full      production math (bit-equal to ops.flash_attention's kernel)
+  full      the first design's math, unchanged (attention; within the
+            attention tolerance of ops.flash_attention's kernel, no longer
+            bit-equal to it)
   noexp     no exp2 per logit             -> full - noexp   = exp2 cost
   nosm      no scale/mask/max/exp2        -> full - nosm    = softmax cost
   nopv      no P.V mma                    -> full - nopv    = PV cost
@@ -39,7 +43,7 @@ from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.flash_attention import (LOG2E, _check_operand,
                                                 attention_plain)
 
-# the C interface's mode numbers (csrc/flash_attention.cuh FlashMode)
+# the C interface's mode numbers (csrc/flash_ablate.cuh FlashMode)
 MODES = ("full", "noexp", "nosm", "nopv", "noqk", "nomxu", "noshift",
          "chunk2", "chunk4")
 # modes whose output is attention (the others are bounded stand-ins)
