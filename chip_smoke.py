@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 1. device: fails without CUDA; prints the card's name and power limit and
    the torch / CUDA / triton / nvcc versions;
 2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc and
-   prints ptxas's registers and spills; fails if the GEMM tile core or any
-   flash instantiation spills, or ptxas ignored a setmaxnreg;
+   prints ptxas's registers and spills; fails if the GEMM tile core, any
+   flash or temporal-core instantiation spills, or ptxas ignored a
+   setmaxnreg;
 3. kernels: each kernel wrapper (the function the main path calls; one
    call must count one launch) against its plain PyTorch version on the
    card at the main path's shapes (ragged edges included), max error beside
@@ -20,7 +21,9 @@ Phases, in order; any failure exits non-zero:
    take the exp2 of every logit, spread over the special-function units
    and the FMA pipes, see ``exp2_ms``); the flash kernel also at the full
    main-path batch beside the ablation tool's ``full`` build (the first,
-   mma.sync design), and beside SDPA in interleaved rounds;
+   mma.sync design), and beside SDPA in interleaved rounds; the temporal
+   attention chain at UNet levels 0-3, and its core alone at those levels
+   and at F = 5 and 32 (beside SDPA on (B·S, H, F, d) copies);
 4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``): every
    mode, in both K/V layouts, against its plain version at UNet levels 0
    and 1 and a ragged shape; ``full`` (the first design) and the
@@ -33,7 +36,11 @@ Phases, in order; any failure exits non-zero:
    the CPU fp32 plain path), then a full-width MIMOConfig() generation of a
    24-frame 512x784 clip with CFG through ``entry.animate.animate``, twice
    through one Runner; the second run's phase times and kernel launch
-   counts are printed and every count must be > 0;
+   counts are printed and every count must be > 0; then the window sum of
+   a 41-frame clip (three overlapping context windows, some frames in all
+   three) 20 times in fp32, which must give one result, and the clip at
+   256x256 for 2 steps twice through the same Runner, whose two videos must
+   be equal in every bit;
 6. the last line: {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --calibrate`` runs phases 1-2, then the readings
@@ -195,12 +202,13 @@ def phase_build() -> None:
         elif "Used" in line and "registers" in line and name:
             regs = line.split("Used")[1].split(",")[0].strip()
             log(f"  ptxas {name}: {regs}; {spills}")
-            if ("gemm_kernel" in name or "flash_fwd_kernel" in name) \
+            if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
+                                        "tattn_kernel")) \
                     and not spills.startswith("0 bytes"):
                 bad.append(f"{name}: {spills}")
             name = None
     if bad:
-        raise AssertionError(f"wgmma kernel build: {bad}")
+        raise AssertionError(f"ring kernel build: {bad}")
 
 
 def call_wrapper(wrapper, *args, **kwargs):
@@ -414,6 +422,7 @@ def phase_kernels():
         entries.append(entry)
 
     entries += gemm_chain_cases(FF, TA, randn)
+    entries += temporal_core_cases(TA, randn)
     return entries
 
 
@@ -495,8 +504,8 @@ def gemm_chain_cases(FF, TA, randn):
                 wrapper.__name__, ffn_src, replaces, label, err,
                 lambda: wrapper(*args), lambda: plain(*args), work, library))
 
-    # motion modules: (B=2, F=24, S, C), 8 heads; levels 0, 2 and 3
-    for s, c in ((6272, 320), (400, 1280), (104, 1280)):
+    # motion modules: (B=2, F=24, S, C), 8 heads; levels 0-3
+    for s, c in ((6272, 320), (1568, 640), (400, 1280), (104, 1280)):
         x = randn(2, 24, s, c, scale=2.0)
         attn = {k: lin(c, c, bias=False) for k in ("to_q", "to_k", "to_v")}
         attn["to_out"] = lin(c, c)
@@ -518,6 +527,41 @@ def gemm_chain_cases(FF, TA, randn):
             lambda: TA.temporal_attention_plain(*args), work,
             ("no single call: LN + PE, two products and an F x F softmax "
              "attention", None)))
+    return entries
+
+
+def temporal_core_cases(TA, randn):
+    """The temporal attention core alone (``temporal_attn_core``, the
+    kernel between the chain's two tile-core calls) against
+    ``temporal_attn_core_plain`` at the motion modules' levels and at F = 5
+    and 32, beside SDPA over contiguous (B·S, H, F, d) copies of q, k, v
+    made before the timing (a yardstick the port never calls)."""
+    import torch.nn.functional as F
+    from mimo_tpu_torch.tools import time_tattn_core as TC
+    why = ("a softmax weight can round to the neighbouring bf16 value (fp32 "
+           "logits summed in another order, exp2 for exp: <= 2^-8 max|v| on "
+           "o) and o can round the other way (2^-8 max|v|): |d| <= 2^-7 "
+           "max|v|")
+    entries = []
+    for b, f, s, c, heads in TC.CASES:
+        qkv = randn(b * f * s, 3 * c, scale=2.0)
+        args = (qkv, b, f, s, heads)
+        got = call_wrapper(TA.temporal_attn_core, *args)
+        torch.cuda.synchronize()
+        label = f"temporal_attn_core B={b} F={f} S={s} C={c} heads={heads}"
+        err = check_close(label, got, TA.temporal_attn_core_plain(*args),
+                          2 ** -7 * float(qkv[:, 2 * c:].float().abs().max()),
+                          0.0, why)
+        q, k, v = TC.sdpa_inputs(*args)
+        flops, nbytes, logits = TC.core_work(b, f, s, c, heads)
+        entries.append(kernel_entry(
+            "temporal_attn_core", "mimo_tpu_torch/csrc/temporal_attention.cu",
+            "mimo_tpu/ops/temporal_attention.py:212", label, err,
+            lambda: TA.temporal_attn_core(*args),
+            lambda: TA.temporal_attn_core_plain(*args),
+            (flops, nbytes, PEAK_BF16, logits),
+            ("F.scaled_dot_product_attention on contiguous (B·S, H, F, d) "
+             "copies", lambda: F.scaled_dot_product_attention(q, k, v))))
     return entries
 
 
@@ -735,11 +779,11 @@ def _map_tree(tree, fn):
     return None if tree is None else fn(tree)
 
 
-def template_frames():
-    """A 24-frame 512x784 sdc-like pose clip and a reference image, drawn in
-    memory (a figure walking across a black frame)."""
+def template_frames(count=FRAMES):
+    """A ``count``-frame 512x784 sdc-like pose clip and a reference image,
+    drawn in memory (a figure walking across a black frame)."""
     frames = []
-    for t in range(FRAMES):
+    for t in range(count):
         f = np.zeros((HEIGHT, WIDTH, 3), np.uint8)
         cx = 250 + 10 * t
         f[120:420, cx - 45:cx + 45] = (120, 180, 90)      # torso + legs
@@ -803,7 +847,75 @@ def phase_main_path():
         f"{video.max():.4f} std {std:.4f}")
     if std <= 1e-4:
         raise AssertionError("output is constant")
+    window_determinism(runner)
     return launches
+
+
+def accumulation_determinism(pose2vid, win, wts, runs: int = 20) -> None:
+    """The step's window sum alone, in fp32 at the main path's latent size
+    (64x98x4), ``runs`` times on the card: ``accumulate_windows`` must give
+    one result. Beside it, for scale, the same adds as one ``index_add_``
+    over the whole chunk (the scatter it replaced): atomics pick the order
+    of a frame's adds, which decides the fp32 bits once three windows meet.
+    The clip below rounds these sums into bf16 latents, which hides most
+    one-ulp differences, so this check is the sharper of the two."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lat = (64, 98, 4)
+    preds = torch.randn((*win.shape, *lat), generator=gen, device=dev)
+    idx = torch.as_tensor(win, dtype=torch.long, device=dev)
+    wt = torch.as_tensor(wts, device=dev)
+
+    def windowed():
+        nsum = torch.zeros((int(win.max()) + 1, *lat), device=dev)
+        pose2vid.accumulate_windows(nsum, preds, idx, wt)
+        return nsum
+
+    def one_scatter():
+        nsum = torch.zeros((int(win.max()) + 1, *lat), device=dev)
+        nsum.index_add_(0, idx.reshape(-1),
+                        (preds * wt[:, None, None, None, None]).flatten(0, 1))
+        return nsum
+
+    distinct = {name: len({fn().cpu().numpy().tobytes() for _ in range(runs)})
+                for name, fn in (("accumulate_windows", windowed),
+                                 ("one index_add_ a chunk", one_scatter))}
+    log(f"  window sum, fp32 {win.shape[0]} windows x {win.shape[1]} frames "
+        f"x {lat}, {runs} runs: distinct results {distinct}")
+    if distinct["accumulate_windows"] != 1:
+        raise AssertionError("accumulate_windows is not deterministic")
+
+
+def window_determinism(runner) -> None:
+    """A clip longer than one context window, generated twice: the windows
+    overlap, some frames lie in three of them, so the order of a frame's
+    fp32 adds decides its bits (two adds onto zero commute); the two runs
+    must agree in every bit."""
+    from mimo_tpu_torch.entry.animate import animate
+    from mimo_tpu_torch.pipelines import pose2vid
+    frames, size = 41, 256
+    st = pose2vid.Pose2VideoStatic(cfg=runner.cfg, num_frames=frames,
+                                   height=size, width=size,
+                                   num_inference_steps=2, guidance_scale=3.5)
+    win, wts = pose2vid.make_windows(st)
+    cover = np.bincount(win.reshape(-1))
+    shared = int((cover > 1).sum())
+    if cover.max() < 3:
+        raise AssertionError(f"{frames} frames put no frame in three windows")
+    accumulation_determinism(pose2vid, win, wts)
+    ref, clip = template_frames(frames)
+    kw = dict(width=size, height=size, steps=2, cfg_scale=3.5, seed=7)
+    t0 = time.perf_counter()
+    runs = [animate(runner, ref, clip, **kw) for _ in range(2)]
+    same = np.array_equal(runs[0], runs[1])
+    log(f"  window determinism: {frames} frames {size}x{size}, 2 steps, "
+        f"{win.shape[0]} windows sharing {shared} frames (up to "
+        f"{cover.max()} windows a frame): two runs "
+        f"{'equal in every bit' if same else 'DIFFER'} (max |d| "
+        f"{float(np.abs(runs[0] - runs[1]).max()):.3g}, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise AssertionError("two runs of one clip differ")
 
 
 def kernel_wrappers():
@@ -815,7 +927,7 @@ def kernel_wrappers():
     return (FA.flash_attention_nt, FA.flash_attention_nt_bank,
             GN.group_norm_fused, FF.ffn_ln_geglu_fused, FF.qkv_ln_fused,
             FF.matmul_bias_residual, FF.matmul_bias,
-            TA.temporal_attention_ln)
+            TA.temporal_attention_ln, TA.temporal_attn_core)
 
 
 def calibrate() -> None:

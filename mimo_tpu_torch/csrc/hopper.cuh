@@ -1,7 +1,8 @@
-// Hopper (sm_90a) helpers shared by the wgmma kernels (gemm.cu,
-// flash_attention.cu): shared-memory addresses, mbarriers, TMA loads,
-// wgmma descriptors, fences and products, and cuTensorMapEncodeTiled
-// fetched through the runtime.
+// Hopper (sm_90a) helpers shared by the kernels on mbarrier rings
+// (gemm.cu, flash_attention.cu, temporal_attention.cu): shared-memory
+// addresses, mbarriers, TMA tensor and bulk copies, wgmma descriptors,
+// fences and products, and cuTensorMapEncodeTiled fetched through the
+// runtime.
 
 #pragma once
 
@@ -72,6 +73,24 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// TMA bulk copy (no tensor map): `bytes` contiguous bytes, a multiple of
+// 16, from global src to shared dst, both 16-byte aligned; completion is
+// counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's generic-proxy shared-memory accesses before later
+// TMA (async-proxy) accesses to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a K-major tile with the 128-byte
@@ -254,8 +273,9 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled, a libcuda entry point, fetched through the
-// runtime so the library needs no link against libcuda
-EncodeTiled encode_tiled() {
+// runtime so the library needs no link against libcuda (inline: a source
+// that includes this header without TMA maps does not reference it)
+inline EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q;

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "mimo_gemm_fwd": (
         [_P, _L, _P, _P, _P, _L, _P, _L] + [_I] * 3
         + [_P, _P, _P, _F, _P] + [_I] * 3 + [_P], _I),
-    "mimo_temporal_attention_fwd": ([_P, _P] + [_I] * 5 + [_F, _P], _I),
+    "mimo_temporal_attention_fwd": ([_P, _P] + [_I] * 9 + [_F, _P], _I),
     "mimo_flash_ablate_fwd": (
         [_I, _I] + [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P], _I),
 }

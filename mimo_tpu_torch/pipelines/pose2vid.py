@@ -171,12 +171,28 @@ def _run_unet_window_chunk(params_du: Params, st: Pose2VideoStatic,
                           cond["cond_banks"], cfg_split=st.do_cfg)
 
 
+def accumulate_windows(nsum: torch.Tensor, preds: torch.Tensor,
+                       w_idx: torch.Tensor, wts: torch.Tensor) -> None:
+    """nsum[w_idx[i]] += wts[i] * preds[i] for every window i, in window
+    order, in place. nsum (F, ...) fp32; preds (W, cs, ...); w_idx (W, cs)
+    frame indices; wts (W,).
+
+    One ``index_add_`` per window: the frames of one window are distinct,
+    so no call adds twice to one row, and the order of the adds to a frame
+    that several windows share is the window order. A single call over
+    overlapping windows would add with atomics in no fixed order on CUDA,
+    and two runs of one clip could differ in their bits."""
+    for i in range(w_idx.shape[0]):
+        nsum.index_add_(0, w_idx[i], preds[i] * wts[i])
+
+
 def _accumulate_step(params_du: Params, st: Pose2VideoStatic,
                      cond: Dict[str, Any], latents: torch.Tensor, t,
                      win: np.ndarray, wts: np.ndarray,
                      counter: torch.Tensor) -> torch.Tensor:
     """One denoise step's combined v-prediction: every window chunk,
-    weighted scatter-add, divide by the overlap counter, CFG."""
+    weighted scatter-add in window order, divide by the overlap counter,
+    CFG."""
     wn = win.shape[0]
     chunk = st.window_chunk or wn
     dev = latents.device
@@ -187,17 +203,13 @@ def _accumulate_step(params_du: Params, st: Pose2VideoStatic,
                                 device=dev)
         size = w_idx.shape[0]
         wt = torch.as_tensor(wts[c0:c0 + chunk], device=dev)
-        wt = wt[:, None, None, None, None]
         pred = _run_unet_window_chunk(params_du, st, cond, latents, t,
                                       w_idx).float()
-        flat = w_idx.reshape(-1)
         if st.do_cfg:
-            pu, pc = pred[:size] * wt, pred[size:] * wt
-            nsum_u.index_add_(0, flat, pu.reshape(-1, *pu.shape[2:]))
-            nsum_c.index_add_(0, flat, pc.reshape(-1, *pc.shape[2:]))
+            accumulate_windows(nsum_u, pred[:size], w_idx, wt)
+            accumulate_windows(nsum_c, pred[size:], w_idx, wt)
         else:
-            pf = pred * wt
-            nsum_c.index_add_(0, flat, pf.reshape(-1, *pf.shape[2:]))
+            accumulate_windows(nsum_c, pred, w_idx, wt)
     if st.do_cfg:
         v_u, v_c = nsum_u / counter, nsum_c / counter
         return v_u + st.guidance_scale * (v_c - v_u)

@@ -23,7 +23,7 @@ SLICE_MODULES = [
     "mimo_tpu_torch.utils.video_io", "mimo_tpu_torch.entry.template",
     "mimo_tpu_torch.entry.runner", "mimo_tpu_torch.entry.animate",
     "mimo_tpu_torch.entry.profile", "mimo_tpu_torch.pipelines.interp",
-    "mimo_tpu_torch.tools.ablate_flash",
+    "mimo_tpu_torch.tools.ablate_flash", "mimo_tpu_torch.tools.time_tattn_core",
 ]
 
 
