@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero:
    the torch / CUDA / triton / nvcc versions;
 2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc and
    prints ptxas's registers and spills; fails if the GEMM tile core, any
-   flash or temporal-core instantiation spills, or ptxas ignored a
-   setmaxnreg;
+   flash, temporal-core, GroupNorm or LN-row instantiation spills, or
+   ptxas ignored a setmaxnreg;
 3. kernels: each kernel wrapper (the function the main path calls; one
    call must count one launch) against its plain PyTorch version on the
    card at the main path's shapes (ragged edges included), max error beside
@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero:
    the least time the card could take (the larger of bytes over 3.35 TB/s
    and operations over their peak rate; for attention the operations also
    take the exp2 of every logit, spread over the special-function units
-   and the FMA pipes, see ``exp2_ms``); the flash kernel also at the full
+   and the FMA pipes, see ``exp2_ms``); GroupNorm at UNet levels 0-3 and
+   the VAE's shapes, and the LN row pass (``ln_rows``) at levels 0-3, each
+   also run twice at level 0, which must give equal bits; the flash kernel
+   also at the full
    main-path batch beside the ablation tool's ``full`` build (the first,
    mma.sync design), and beside SDPA in interleaved rounds; the temporal
    attention chain at UNet levels 0-3, and its core alone at those levels
@@ -203,12 +206,14 @@ def phase_build() -> None:
             regs = line.split("Used")[1].split(",")[0].strip()
             log(f"  ptxas {name}: {regs}; {spills}")
             if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
-                                        "tattn_kernel")) \
+                                        "tattn_kernel", "gn_kernel",
+                                        "ln_rows_kernel",
+                                        "ln_rows_wide_kernel")) \
                     and not spills.startswith("0 bytes"):
                 bad.append(f"{name}: {spills}")
             name = None
     if bad:
-        raise AssertionError(f"ring kernel build: {bad}")
+        raise AssertionError(f"kernel build: {bad}")
 
 
 def call_wrapper(wrapper, *args, **kwargs):
@@ -382,15 +387,54 @@ def phase_kernels():
                 f"{bound_ms:.3f} ms by {what} ({bound_ms / ms[len(ms) // 2]:.0%}"
                 f" of the median)")
 
-    gn_why = ("bf16 output rounding (<= 1 ulp = 2^-7 relative) on fp32 "
-              "statistics summed in another order")
-    gn_cases = [
-        # (replaces, n, s, c, groups, eps, row_add, silu)
+    entries += group_norm_cases(GN, randn)
+    entries += ln_rows_cases(FF, randn)
+    entries += gemm_chain_cases(FF, TA, randn)
+    entries += temporal_core_cases(TA, randn)
+    return entries
+
+
+def bit_equal(label: str, fn) -> None:
+    """fn() twice on the same inputs must give equal bits."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    same = torch.equal(first, second)
+    log(f"  {label}, run twice: {'equal in every bit' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"{label}: two runs differ")
+
+
+def group_norm_cases(GN, randn):
+    """``group_norm_fused`` against ``group_norm_plain`` at UNet levels 0-3
+    and the VAE's shapes, beside F.group_norm where no row add or SiLU is
+    fused; then one level-0 call twice, which must give equal bits."""
+    why = ("bf16 output rounding (<= 1 ulp = 2^-7 relative) on fp32 "
+           "statistics summed in another order")
+    bf = torch.bfloat16
+    cases = [
+        # (replaces, n, s, c, groups, eps, row_add, silu): UNet level 0's
+        # resnet norm2 (the time-embedding add + SiLU), its transformer norm
+        # and the up block's concat width (norm1, C = 960: C/G = 30); the
+        # transformer / motion norms of levels 1-3 (16x25 and 8x13
+        # latents); the VAE decoder's mid-block norm and a full-resolution
+        # one
         ("mimo_tpu/ops/groupnorm.py:221", 48, 6272, 320, 32, 1e-5, True, True),
+        ("mimo_tpu/ops/groupnorm.py:221", 48, 6272, 320, 32, 1e-6, False,
+         False),
+        ("mimo_tpu/ops/groupnorm.py:221", 48, 6272, 960, 32, 1e-5, False,
+         True),
+        ("mimo_tpu/ops/groupnorm.py:221", 48, 1568, 640, 32, 1e-6, False,
+         False),
+        ("mimo_tpu/ops/groupnorm.py:221", 48, 400, 1280, 32, 1e-6, False,
+         False),
+        ("mimo_tpu/ops/groupnorm.py:221", 48, 104, 1280, 32, 1e-6, False,
+         False),
         ("mimo_tpu/ops/groupnorm.py:275", 8, 6272, 512, 32, 1e-6, False, False),
         ("mimo_tpu/ops/groupnorm.py:298", 8, 401408, 128, 32, 1e-6, False, True),
     ]
-    for replaces, n, s, c, groups, eps, radd, silu in gn_cases:
+    entries = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for replaces, n, s, c, groups, eps, radd, silu in cases:
         x = randn(n, s, c, scale=3.0) + 0.5
         scale = randn(c).float() * 0.5 + 1.0
         bias = randn(c).float() * 0.5
@@ -398,10 +442,13 @@ def phase_kernels():
         args = (x, scale, bias, groups, eps, silu, ra)
         got = call_wrapper(GN.group_norm_fused, *args)
         torch.cuda.synchronize()
+        plan = GN.gn_plan(n, s, c, sms)
         label = (f"group_norm_fused ({n}, {s}, {c}) G={groups} eps={eps}"
-                 f"{' +row_add' if radd else ''}{' +silu' if silu else ''}")
+                 f"{' +row_add' if radd else ''}{' +silu' if silu else ''} "
+                 f"[{plan.teams} teams x {plan.team} blocks x {plan.rows} "
+                 f"rows]")
         err = check_close(label, got, GN.group_norm_plain(*args), 1e-2, 1e-2,
-                          gn_why)
+                          why)
         # one read and one write of x; ~10 fp32 operations an element
         # (stats 3, normalise + affine 3, SiLU 4)
         work = (x.numel() * (10 if silu else 6), 2 * 2 * x.numel()
@@ -420,9 +467,57 @@ def phase_kernels():
         log(f"    {3 * x.numel() * 2 / (entry['ms'] * 1e-3) / 1e9:.0f} GB/s "
             f"for 2 reads + 1 write")
         entries.append(entry)
+    x = randn(48, 6272, 320, scale=3.0) + 0.5
+    args = (x, randn(320).float() + 1.0, randn(320).float(), 32, 1e-5, True,
+            randn(48, 320))
+    bit_equal("group_norm_fused (48, 6272, 320) +row_add +silu",
+              lambda: GN.group_norm_fused(*args))
+    return entries
 
-    entries += gemm_chain_cases(FF, TA, randn)
-    entries += temporal_core_cases(TA, randn)
+
+def ln_rows_cases(FF, randn):
+    """The LN row pass (``ln_rows``, the tile core's LN prologue) against
+    ``ln_rows_plain`` at UNet levels 0-3 (48 frames), beside F.layer_norm;
+    with the motion modules' PE at level 0; at the ragged K = 232; then one
+    level-0 call twice, which must give equal bits."""
+    import torch.nn.functional as F
+    why = ("LN rounded to bf16 (then + PE, rounded again) on fp32 statistics "
+           "(E[x^2] - E[x]^2 against a centred variance, summed in another "
+           "order): |d| <= 2^-6 max|ref| (two bf16 ulps of the largest "
+           "value)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entries = []
+    # (rows, K, PE frames): rows (b·F + f)·S + s with S = 6272 for the PE
+    for rows, c, frames in ((48 * 6272, 320, 0), (48 * 1568, 640, 0),
+                            (48 * 400, 1280, 0), (48 * 104, 1280, 0),
+                            (2 * 24 * 6272, 320, 24), (1000, 232, 0)):
+        x = randn(rows, c, scale=2.0) + 0.3
+        scale, bias = randn(c, scale=0.3) + 1.0, randn(c, scale=0.3)
+        pe = randn(frames, c, scale=0.5) if frames else None
+        args = (x, scale, bias, 1e-5, pe, 6272)
+        got = call_wrapper(FF.ln_rows, *args)
+        torch.cuda.synchronize()
+        plan = FF.ln_rows_plan(rows, c, sms)
+        label = (f"ln_rows R={rows} K={c}{' +pe F=%d' % frames if frames else ''}"
+                 f" [{plan.lanes} lanes x {plan.vectors} vectors a row]")
+        want = FF.ln_rows_plain(*args)
+        err = check_close(label, got, want,
+                          float(want.float().abs().max()) / 64, 0.0, why)
+        # x read once, y written once, the vectors; ~8 fp32 operations an
+        # element (stats 3, normalise + affine 4, PE 1)
+        work = (8 * rows * c, 2 * (2 * rows * c + 2 * c + frames * c),
+                PEAK_FP32)
+        library = (("no single call: LN, then + PE", None) if frames else
+                   ("F.layer_norm", lambda: F.layer_norm(x, (c,), scale, bias,
+                                                         1e-5)))
+        entries.append(kernel_entry(
+            "ln_rows", "mimo_tpu_torch/csrc/ln_rows.cu",
+            "mimo_tpu/ops/ffn.py:245", label, err,
+            lambda: FF.ln_rows(*args), lambda: FF.ln_rows_plain(*args), work,
+            library))
+    x = randn(48 * 6272, 320, scale=2.0) + 0.3
+    args = (x, randn(320, scale=0.3) + 1.0, randn(320, scale=0.3), 1e-5)
+    bit_equal("ln_rows R=301056 K=320", lambda: FF.ln_rows(*args))
     return entries
 
 
@@ -925,8 +1020,8 @@ def kernel_wrappers():
     from mimo_tpu_torch.ops import groupnorm as GN
     from mimo_tpu_torch.ops import temporal_attention as TA
     return (FA.flash_attention_nt, FA.flash_attention_nt_bank,
-            GN.group_norm_fused, FF.ffn_ln_geglu_fused, FF.qkv_ln_fused,
-            FF.matmul_bias_residual, FF.matmul_bias,
+            GN.group_norm_fused, FF.ln_rows, FF.ffn_ln_geglu_fused,
+            FF.qkv_ln_fused, FF.matmul_bias_residual, FF.matmul_bias,
             TA.temporal_attention_ln, TA.temporal_attn_core)
 
 

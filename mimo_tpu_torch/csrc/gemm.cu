@@ -1,5 +1,5 @@
-// GEMM-chain kernels for Hopper (sm_90a): out = epilogue(prologue(A) . W),
-// bf16 operands, fp32 accumulation.
+// The GEMM tile core for Hopper (sm_90a): out = epilogue(A . W), bf16
+// operands, fp32 accumulation.
 //
 // Replaces the TPU kernels of mimo_tpu/ops/ffn.py — _ffn_pallas_nsc/_snc
 // (LN -> up-projection -> GEGLU -> down-projection -> +residual),
@@ -7,16 +7,12 @@
 // (res + x.W + b) and _matmul_pallas/_snc (x.W + b) — and the two
 // projection stages of mimo_tpu/ops/temporal_attention.py
 // ::temporal_attention_fused (LN + PE -> q|k|v, out-projection + bias +
-// residual). Two kernels serve all of them:
-//
-// - ln_rows_kernel, the prologue: LayerNorm of each A row (fp32
-//   statistics, var = E[x^2] - E[x]^2, fp32 affine, rounded to bf16) with an
-//   optional per-frame positional encoding added after the rounding (row r
-//   belongs to frame (r / pe_div) % pe_frames), into a bf16 workspace;
-// - gemm_kernel, the tile core, with its epilogue: + bias (optional),
-//   + bias + residual, or GEGLU: a tile's kBN weight rows are kBN/2 value
-//   columns and the kBN/2 matching gate columns, and it writes
-//   h * gelu_erf(gate).
+// residual). gemm_kernel, the tile core, serves all of them with its
+// epilogue: + bias (optional), + bias + residual, or GEGLU: a tile's kBN
+// weight rows are kBN/2 value columns and the kBN/2 matching gate columns,
+// and it writes h * gelu_erf(gate). Where the TPU kernel starts with a
+// LayerNorm (+ PE), ops/ffn.py::gemm first runs the LN row pass of
+// csrc/ln_rows.cu into a bf16 workspace, which the core then reads.
 //
 // Numerics follow the Pallas kernels: the product is rounded to bf16 before
 // the bias; each following add and the gate multiply round to bf16; gelu is
@@ -72,10 +68,10 @@
 // 34-68% at level 0, where the epilogue still adds to the loads' time
 // instead of hiding behind them (PERF.md, Findings).
 //
-// The LN prologue is its own pass (one warp per row: one read of A, one
-// write of the normalised rows) and not a step inside the tile core: done
-// in the core, every column block would normalise its A tiles again (8 to
-// 80 times over on the main path's N).
+// The LN prologue is its own pass (one read of A, one write of the
+// normalised rows) and not a step inside the tile core: done in the core,
+// every column block would normalise its A tiles again (8 to 80 times over
+// on the main path's N).
 
 #include "hopper.cuh"
 
@@ -144,59 +140,6 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16_rn(f[e]);
   return v;
-}
-
-__device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// y = bf16(LN(x)) [+ pe] for each row of x (m, k), one warp per row:
-// fp32 statistics with var = E[x^2] - E[x]^2 as in the Pallas kernels, then
-// a second read of the row (from L1) to normalise it
-__global__ void __launch_bounds__(256)
-    ln_rows_kernel(const __nv_bfloat16* __restrict__ x, long long ldx, int m,
-                   int k, const __nv_bfloat16* __restrict__ scale,
-                   const __nv_bfloat16* __restrict__ bias, float eps,
-                   const __nv_bfloat16* __restrict__ pe, int pe_div,
-                   int pe_frames, __nv_bfloat16* __restrict__ y) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= m) return;
-  const __nv_bfloat16* p = x + row * ldx;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane * 8; c < k; c += 32 * 8) {
-    float f[8];
-    unpack8(ldg16(p + c), f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s1 += f[e];
-      s2 += f[e] * f[e];
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-  }
-  const float mean = s1 / k;
-  const float inv = rsqrtf(s2 / k - mean * mean + eps);
-  const __nv_bfloat16* pe_row =
-      pe != nullptr ? pe + (long long)((row / pe_div) % pe_frames) * k
-                    : nullptr;
-  for (int c = lane * 8; c < k; c += 32 * 8) {
-    float f[8], sc[8], bi[8];
-    unpack8(ldg16(p + c), f);
-    unpack8(ldg16(scale + c), sc);
-    unpack8(ldg16(bias + c), bi);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = bf((f[e] - mean) * inv * sc[e] + bi[e]);
-    if (pe_row != nullptr) {
-      float q[8];
-      unpack8(ldg16(pe_row + c), q);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] += q[e];
-    }
-    *reinterpret_cast<uint4*>(y + (long long)row * k + c) = pack8(f);
-  }
 }
 
 __device__ __forceinline__ void consumer_sync(int cw) {  // one warpgroup
@@ -461,44 +404,26 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
 
 extern "C" {
 
-// out (m, n) = epilogue(prologue(a (m, k)) . W). Returns a cudaError_t code
-// (0 on success).
+// out (m, n) = epilogue(a (m, k) . W). Returns a cudaError_t code (0 on
+// success).
 //
 // w is the weight as ops/ffn.py::prepare_weight lays it out: (col_tiles *
 // 160, k) bf16, row-major, with col_tiles = ceil(n / 160), or
 // ceil(n / 80) for GEGLU, whose tile j holds value columns 80 j .. and then
 // the matching gate columns.
 //
-// ln_scale == nullptr: no prologue; otherwise ln_out is an (m, k) bf16
-// workspace that receives the normalised rows, and the product reads it. pe
-// may be nullptr. epilogue: 0 = + bias (bias may be nullptr), 1 = + bias +
-// res, 2 = GEGLU, with bias (2n,) in the unprepared [value | gate] order.
+// epilogue: 0 = + bias (bias may be nullptr), 1 = + bias + res, 2 = GEGLU,
+// with bias (2n,) in the unprepared [value | gate] order.
 int mimo_gemm_fwd(const void* a, long long lda, const void* w,
                   const void* bias, const void* res, long long ldr,
-                  void* out, long long ldo, int m, int n, int k,
-                  const void* ln_scale, const void* ln_bias, void* ln_out,
-                  float eps, const void* pe, int pe_div, int pe_frames,
-                  int epilogue, void* stream) {
+                  void* out, long long ldo, int m, int n, int k, int epilogue,
+                  void* stream) {
   if (m < 1 || n < 1 || k < 1 || n % 8 || k % 8 || lda % 8 || ldo % 8 ||
       ldr % 8 || epilogue < 0 || epilogue > 2 ||
       (epilogue == kEpiGeglu && bias == nullptr) ||
-      (epilogue == kEpiBiasRes && res == nullptr) ||
-      (ln_scale != nullptr && (ln_bias == nullptr || ln_out == nullptr)) ||
-      (pe != nullptr && (ln_scale == nullptr || pe_div < 1 || pe_frames < 1)))
+      (epilogue == kEpiBiasRes && res == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ln_scale != nullptr) {
-    ln_rows_kernel<<<(m + 7) / 8, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(a), lda, m, k,
-        static_cast<const __nv_bfloat16*>(ln_scale),
-        static_cast<const __nv_bfloat16*>(ln_bias), eps,
-        static_cast<const __nv_bfloat16*>(pe), pe_div, pe_frames,
-        static_cast<__nv_bfloat16*>(ln_out));
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    a = ln_out;
-    lda = k;
-  }
   const int tile_cols = epilogue == kEpiGeglu ? kBN / 2 : kBN;
   EpiArgs e;
   e.bias = static_cast<const __nv_bfloat16*>(bias);

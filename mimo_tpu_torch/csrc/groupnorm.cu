@@ -2,25 +2,48 @@
 // activations over an (N, S, C) tensor, G groups of C/G channels.
 //
 // Replaces the three TPU variants in mimo_tpu/ops/groupnorm.py:
-// _gn_pallas_snc (_gn_snc_kernel), _gn_pallas resident (_gn_kernel) and
-// _gn_pallas two-phase (_gn2_kernel). One design serves all sizes, from the
-// UNet's (48, 6272, 320) to the VAE's full-resolution (8, 401408, 128):
+// _gn_pallas_snc (:221), _gn_pallas resident (:275) and _gn_pallas
+// two-phase (:298).
 //
-//   1. gn_stats_kernel: grid (channel tiles, S-chunks, N). Each block sums
-//      x + row_add and its square in fp32 over its rows, per channel, and
-//      writes one partial per (n, chunk, channel). Threads of one block
-//      combine in a fixed order, so the partials are deterministic.
-//   2. gn_finalize_kernel: one block per n sums the partials of each group
-//      over chunks and channels in a fixed order, takes
-//      var = E[x^2] - E[x]^2 in fp32 (as the TPU kernel and
-//      mimo_tpu/models/layers.py do), and folds mean, rsqrt(var + eps), the
-//      affine and the row add into per-channel mul/add.
-//   3. gn_apply_kernel: y = x * mul + add, optional SiLU in fp32, one store.
+// What bounds it on an H100: no matrix product and ~10 fp32 operations an
+// element, so HBM bytes (3.35 TB/s). The least it must move is one read and
+// one write of x. The statistics of a batch row n need all of its S rows
+// before any row can be normalised, so x is read twice: once for the
+// statistics, once to normalise.
 //
-// What bounds it on an H100: no matrix product, 2 reads and 1 write of the
-// activation, so HBM bandwidth (3.35 TB/s). The design reads and writes
-// 16 bytes a thread with neighbouring threads on neighbouring channels, and
-// sizes the S-chunks so that about four blocks per SM are in flight.
+// One launch a call: a cooperative grid of two blocks an SM (co-resident,
+// so blocks may wait for each other), cut into one team a batch row, all
+// batch rows at once (`teams` = N while N <= the grid; beyond, a team walks
+// n = t, t + teams, ...). A team's blocks split the row's S rows (`rows`
+// each). Per n, a block:
+//   1. sums x + row_add and its square per channel over its rows, in fp32
+//      (each thread over its rows in order, then the threads of a channel in
+//      order, then a warp per group over its channels: a fixed tree), and
+//      writes the group partials;
+//   2. arrives on its team's counter; the last block to arrive (an integer
+//      counter picks it) sums the team's partials in slot order, takes
+//      var = E[x^2] - E[x]^2 in fp32 (as mimo_tpu/models/layers.py and the
+//      Pallas kernels do) and publishes mean and rsqrt(var + eps); the others
+//      wait for it. The order of every sum is fixed by the plan, whichever
+//      block comes last, so two runs give equal bits (no float atomics);
+//   3. reads its rows again, backwards (starting on what step 1 read last,
+//      which L2 may still hold), folds mean, rstd, the affine and the row
+//      add into per-channel mul / add held in registers (a thread keeps its
+//      channels across the rows it walks) and writes y = x * mul + add
+//      (+ SiLU in fp32), one rounding at the store, 16 bytes a thread,
+//      neighbours side by side.
+// A call's tensor up to ~40 MB (UNet levels 2-3) is still in L2 (50 MB) for
+// step 3, so HBM sees it once; larger ones (levels 0-1: 48-578 MB, the
+// VAE) are read from HBM about twice.
+//
+// Why no tier that keeps a batch row in shared memory (as the TPU kernel
+// kept it in VMEM): a team of co-resident blocks can hold ~25 MB, so level
+// 0's and level 1's 48-frame tensors (96-578 MB) take 4-24 rounds of the
+// grid, and each round pays the team barrier with the whole card in step
+// (the loads land over several microseconds, the slowest block sets the
+// pace, HBM idles meanwhile). Built and measured on the card, that tier
+// lost to this one at every main-path shape, levels 2-3 included, where
+// L2 already holds the tensor between the two reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,24 +51,55 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;   // gn_plan keeps tx * ty within this
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
+// vectors a thread keeps in flight: 64 bytes (4 bf16 or 2 fp32 vectors)
+template <typename T>
+constexpr int kUnrollOf = 64 / (8 * sizeof(T));
+
+struct GnArgs {
+  const void* x;
+  const float* radd;     // (N, C) or null
+  const float* scale;    // (C,)
+  const float* bias;     // (C,)
+  void* y;
+  float* part;           // (teams, team, 2G): a block's group partials
+  float* stats;          // (teams, 2G): mean, then rstd, of the team's n
+  unsigned* arrive;      // (teams,): arrivals of the current n, back to 0
+  unsigned* flag;        // (teams,): +1 when the team's stats are out
+  int N, S, C, G;
+  float eps;
+  int silu;
+  int tx, ty, vpt;       // threads across a row's vectors, thread rows,
+                         // vectors a thread takes along a row
+  int team, teams, rows;
+};
+
+template <typename T> struct Vec;
+template <> struct Vec<__nv_bfloat16> { uint4 v; };
+template <> struct Vec<float> { float4 a, b; };
+
+__device__ __forceinline__ Vec<__nv_bfloat16> ld_vec(const __nv_bfloat16* p) {
+  return {*reinterpret_cast<const uint4*>(p)};
+}
+__device__ __forceinline__ Vec<float> ld_vec(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  return {q[0], q[1]};
 }
 
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+__device__ __forceinline__ void unpack(const Vec<__nv_bfloat16>& v,
+                                       float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v.v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void unpack(const Vec<float>& v, float (&f)[8]) {
+  f[0] = v.a.x; f[1] = v.a.y; f[2] = v.a.z; f[3] = v.a.w;
+  f[4] = v.b.x; f[5] = v.b.y; f[6] = v.b.z; f[7] = v.b.w;
 }
 
 __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
@@ -55,178 +109,355 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
-
 __device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// part: (N, nchunk, 2, C) fp32 -- per-chunk channel sums and sums of squares
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gn_stats_kernel(
-    const T* __restrict__ x, const float* __restrict__ radd,
-    float* __restrict__ part, int S, int C, int rows_per_chunk, int tx) {
-  const int n = blockIdx.z, chunk = blockIdx.y, nchunk = gridDim.y;
-  const int ty = kThreads / tx;
-  const int lx = threadIdx.x % tx, ly = threadIdx.x / tx;
-  const int cv = blockIdx.x * tx + lx;
-  const bool active = ly < ty && cv * 8 < C;
-  float s[8], q[8], r[8];
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = q[i] = r[i] = 0.f;
-  if (active) {
-    if (radd != nullptr) load8(radd + (size_t)n * C + cv * 8, r);
-    const int r0 = chunk * rows_per_chunk;
-    const int r1 = min(S, r0 + rows_per_chunk);
-    const T* base = x + (size_t)n * S * C + cv * 8;
-    for (int row = r0 + ly; row < r1; row += ty) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// wait until *flag moves on from f0; ~17 s of waiting is a lost block, not
+// a slow one: trap, so the launch fails instead of hanging
+__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned f0) {
+  const long long t0 = clock64();
+  while (ld_acquire(flag) == f0) {
+    __nanosleep(64);
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  }
+}
+
+// this thread's per-channel sums of (x + r) and (x + r)^2 over rows
+// row0, row0 + step, ... < rows of the (rows, C) block src, vector cv;
+// kUnroll loads in flight
+template <typename T, int kUnroll>
+__device__ __forceinline__ void accumulate(const T* src, int C, int cv,
+                                           int row0, int step, int rows,
+                                           const float (&r)[8], float (&s)[8],
+                                           float (&q)[8]) {
+  int row = row0;
+  for (; row + (kUnroll - 1) * step < rows; row += kUnroll * step) {
+    Vec<T> v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      v[u] = ld_vec(src + (size_t)(row + u * step) * C + cv * 8);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
       float f[8];
-      load8(base + (size_t)row * C, f);
+      unpack(v[u], f);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float v = f[i] + r[i];
-        s[i] += v;
-        q[i] += v * v;
+      for (int e = 0; e < 8; ++e) {
+        const float a = f[e] + r[e];
+        s[e] += a;
+        q[e] += a * a;
       }
     }
   }
-  __shared__ float red[kThreads * 16];
+  for (; row < rows; row += step) {
+    float f[8];
+    unpack(ld_vec(src + (size_t)row * C + cv * 8), f);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    red[threadIdx.x * 16 + i] = s[i];
-    red[threadIdx.x * 16 + 8 + i] = q[i];
-  }
-  __syncthreads();
-  if (ly == 0 && active) {
-    for (int y = 1; y < ty; ++y) {
-      const float* o = red + (y * tx + lx) * 16;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s[i] += o[i];
-        q[i] += o[8 + i];
-      }
+    for (int e = 0; e < 8; ++e) {
+      const float a = f[e] + r[e];
+      s[e] += a;
+      q[e] += a * a;
     }
-    float* ps = part + ((size_t)n * nchunk + chunk) * 2 * C + cv * 8;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      ps[i] = s[i];
-      ps[C + i] = q[i];
-    }
-  }
-}
-
-// coef: (N, 2, C) fp32 -- per-channel mul and add, row add folded in
-__global__ void gn_finalize_kernel(const float* __restrict__ part,
-                                   const float* __restrict__ radd,
-                                   const float* __restrict__ scale,
-                                   const float* __restrict__ bias,
-                                   float* __restrict__ coef, int S, int C,
-                                   int G, int nchunk, float eps) {
-  extern __shared__ float stat[];  // [G] mean, [G] rsqrt(var + eps)
-  const int n = blockIdx.x;
-  const int cpg = C / G;
-  const float cnt = (float)S * (float)cpg;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float sum = 0.f, sq = 0.f;
-    for (int ch = 0; ch < nchunk; ++ch) {
-      const float* ps = part + ((size_t)n * nchunk + ch) * 2 * C + g * cpg;
-      for (int c = 0; c < cpg; ++c) {
-        sum += ps[c];
-        sq += ps[C + c];
-      }
-    }
-    const float mean = sum / cnt;
-    const float var = sq / cnt - mean * mean;
-    stat[g] = mean;
-    stat[G + g] = rsqrtf(var + eps);
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int g = c / cpg;
-    const float mul = stat[G + g] * scale[c];
-    float add = bias[c] - stat[g] * mul;
-    if (radd != nullptr) add += radd[(size_t)n * C + c] * mul;
-    coef[(size_t)n * 2 * C + c] = mul;
-    coef[((size_t)n * 2 + 1) * C + c] = add;
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) gn_apply_kernel(
-    const T* __restrict__ x, const float* __restrict__ coef, T* __restrict__ y,
-    long long total_vecs, long long sc, int C, int silu) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total_vecs; i += (long long)gridDim.x * blockDim.x) {
-    const long long e = i * 8;
-    const long long n = e / sc;
-    const int c = (int)(e % C);
-    float f[8], mul[8], add[8];
-    load8(x + e, f);
-    load8(coef + n * 2 * C + c, mul);
-    load8(coef + (n * 2 + 1) * C + c, add);
+__device__ __forceinline__ void apply8(const Vec<T>& v, const float (&mul)[8],
+                                       const float (&add)[8], int silu,
+                                       T* dst) {
+  float f[8];
+  unpack(v, f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = f[j] * mul[j] + add[j];
-      if (silu) v = v / (1.f + expf(-v));
-      f[j] = v;
-    }
-    store8(y + e, f);
+  for (int e = 0; e < 8; ++e) {
+    float y = f[e] * mul[e] + add[e];
+    if (silu) y = __fdividef(y, 1.f + __expf(-y));
+    f[e] = y;
+  }
+  store8(dst, f);
+}
+
+// y rows of this thread, row0, row0 + step, ... < rows, walked backwards,
+// from src, vector cv
+template <typename T, int kUnroll>
+__device__ __forceinline__ void normalise(const T* src, T* dst, int C, int cv,
+                                          int row0, int step, int rows,
+                                          const float (&mul)[8],
+                                          const float (&add)[8], int silu) {
+  const int count = row0 < rows ? (rows - 1 - row0) / step + 1 : 0;
+  int i = count - 1;
+  for (; i + 1 >= kUnroll; i -= kUnroll) {
+    Vec<T> v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      v[u] = ld_vec(src + (size_t)(row0 + (i - u) * step) * C + cv * 8);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      apply8(v[u], mul, add, silu,
+             dst + (size_t)(row0 + (i - u) * step) * C + cv * 8);
+  }
+  for (; i >= 0; --i) {
+    const size_t off = (size_t)(row0 + i * step) * C + cv * 8;
+    apply8(ld_vec(src + off), mul, add, silu, dst + off);
+  }
+}
+
+__host__ __device__ __forceinline__ size_t align16(size_t b) {
+  return (b + 15) & ~size_t(15);
+}
+
+// dynamic shared memory: [scratch: ty x 2C fp32] [stats: 2G fp32]
+__host__ __device__ __forceinline__ size_t smem_bytes(const GnArgs& a) {
+  return (size_t)a.ty * 2 * a.C * 4 + align16((size_t)2 * a.G * 4);
+}
+
+// The block's view of its work: rows r0 .. r0 + rows of every batch row
+// its team takes, this thread's place in the (ty, tx) layout, and where
+// its team's partials and statistics go.
+struct Block {
+  int team, slot, r0, rows, tx_i, ty_i, lane, warp, warps;
+  float* scratch;   // shared: ty x 2C
+  float* stat;      // shared: 2G (sums, then mean | rstd)
+
+  __device__ Block(const GnArgs& a, unsigned char* base) {
+    const int tid = threadIdx.x;
+    team = blockIdx.x / a.team;
+    slot = blockIdx.x % a.team;
+    r0 = slot * a.rows;
+    rows = min(a.rows, a.S - r0);
+    tx_i = tid % a.tx;
+    ty_i = tid / a.tx;  // ty_i >= ty: a pad thread of the last warp
+    lane = tid & 31;
+    warp = tid >> 5;
+    warps = blockDim.x >> 5;
+    scratch = reinterpret_cast<float*>(base);
+    stat = scratch + (size_t)a.ty * 2 * a.C;
+  }
+  __device__ float* part(const GnArgs& a, int s) const {
+    return a.part + ((size_t)team * a.team + s) * 2 * a.G;
+  }
+  __device__ float* stats(const GnArgs& a) const {
+    return a.stats + (size_t)team * 2 * a.G;
+  }
+};
+
+// step 1a: this thread's sums of (x + r) and (x + r)^2 over its rows of the
+// block's rows src, vector cv, into its row of the scratch
+template <typename T>
+__device__ __forceinline__ void thread_sums(const GnArgs& a, const Block& k,
+                                            const T* src, const float* radd,
+                                            int cv) {
+  float r[8], s[8], q[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    r[e] = radd != nullptr ? radd[cv * 8 + e] : 0.f;
+    s[e] = q[e] = 0.f;
+  }
+  accumulate<T, kUnrollOf<T>>(src, a.C, cv, k.ty_i, a.ty, k.rows, r, s, q);
+  float* sp = k.scratch + (size_t)k.ty_i * 2 * a.C + cv * 8;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sp[e] = s[e];
+    sp[a.C + e] = q[e];
+  }
+}
+
+// step 1b: the threads' sums in scratch into the block's group partials:
+// the thread rows of a channel in order, then a warp per (sum | square,
+// group) over the group's channels
+__device__ void block_partials(const GnArgs& a, const Block& k) {
+  const int cpg = a.C / a.G;
+  __syncthreads();
+  for (int c = threadIdx.x; c < 2 * a.C; c += blockDim.x) {
+    float v = k.scratch[c];
+    for (int y = 1; y < a.ty; ++y) v += k.scratch[(size_t)y * 2 * a.C + c];
+    k.scratch[c] = v;
+  }
+  __syncthreads();
+  float* part = k.part(a, k.slot);
+  for (int j = k.warp; j < 2 * a.G; j += k.warps) {
+    const float* ch = k.scratch + (j < a.G ? 0 : a.C) + (j % a.G) * cpg;
+    float v = 0.f;
+    for (int c = k.lane; c < cpg; c += 32) v += ch[c];
+    v = warp_sum(v);
+    if (k.lane == 0) part[j] = v;
+  }
+  __syncthreads();
+}
+
+// step 2: arrive on the team's counter. Thread 0 keeps the flag's value
+// from before the arrival in *f0; the block that arrives last
+// (an integer counter picks it) sums the team's partials in slot order,
+// publishes mean and rsqrt(var + eps) and moves the flag on. The order of
+// every sum is fixed by the plan, whichever block comes last.
+__device__ void team_arrive(const GnArgs& a, const Block& k, unsigned* f0,
+                            int* s_last) {
+  const int ts = k.team;
+  if (threadIdx.x == 0) {
+    *f0 = ld_acquire(a.flag + ts);
+    __threadfence();
+    *s_last = atomicAdd(a.arrive + ts, 1u) == (unsigned)a.team - 1;
+    if (*s_last) __threadfence();
+  }
+  __syncthreads();
+  if (!*s_last) return;
+  const float* tp = k.part(a, 0);
+  for (int j = k.warp; j < 2 * a.G; j += k.warps) {
+    float v = 0.f;
+    for (int b = k.lane; b < a.team; b += 32)
+      v += __ldcg(tp + (size_t)b * 2 * a.G + j);
+    v = warp_sum(v);
+    if (k.lane == 0) k.stat[j] = v;
+  }
+  __syncthreads();
+  const float count = (float)a.S * (float)(a.C / a.G);
+  float* ts_stats = k.stats(a);
+  for (int g = threadIdx.x; g < a.G; g += blockDim.x) {
+    const float mean = k.stat[g] / count;
+    const float var = k.stat[a.G + g] / count - mean * mean;
+    ts_stats[g] = mean;
+    ts_stats[a.G + g] = rsqrtf(var + a.eps);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    a.arrive[ts] = 0;
+    __threadfence();
+    atomicAdd(a.flag + ts, 1u);
+  }
+}
+
+// the team's statistics into stat, once the flag has moved on from f0
+__device__ void team_wait(const GnArgs& a, const Block& k, unsigned f0) {
+  if (threadIdx.x == 0) wait_flag(a.flag + k.team, f0);
+  __syncthreads();
+  const float* ts_stats = k.stats(a);
+  for (int j = threadIdx.x; j < 2 * a.G; j += blockDim.x)
+    k.stat[j] = __ldcg(ts_stats + j);
+  __syncthreads();
+}
+
+// step 3: y = x * mul + add (+ SiLU) over the block's rows src of batch
+// row n, vector cv, mul / add of the thread's channels in registers for all
+// its rows
+template <typename T>
+__device__ void thread_apply(const GnArgs& a, const Block& k, const T* src,
+                             T* dst, const float* radd, int cv) {
+  const int cpg = a.C / a.G;
+  float mul[8], add[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = cv * 8 + e, g = c / cpg;
+    mul[e] = k.stat[a.G + g] * a.scale[c];
+    add[e] = a.bias[c] - k.stat[g] * mul[e];
+    if (radd != nullptr) add[e] += radd[c] * mul[e];
+  }
+  normalise<T, kUnrollOf<T>>(src, dst, a.C, cv, k.ty_i, a.ty, k.rows, mul,
+                             add, a.silu);
+}
+
+// The kernel: per batch row of its team, the block sums its rows from
+// global memory, arrives, waits for the team's statistics and reads its rows
+// again backwards (starting on what it read last, which L2 may still hold)
+// to normalise them.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 2) gn_kernel(const GnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_last;
+  __shared__ unsigned s_f0;
+  const Block k(a, smem);
+  const size_t slab = (size_t)a.S * a.C;
+  for (int n = k.team; n < a.N; n += a.teams) {
+    const T* xb = static_cast<const T*>(a.x) + n * slab + (size_t)k.r0 * a.C;
+    T* yb = static_cast<T*>(a.y) + n * slab + (size_t)k.r0 * a.C;
+    const float* radd = a.radd != nullptr ? a.radd + (size_t)n * a.C : nullptr;
+    // a thread's vectors: tx_i + v tx below C / 8 (none for pad threads)
+    const int vecs = k.ty_i < a.ty ? a.C / 8 : 0;
+    for (int cv = k.tx_i, v = 0; v < a.vpt && cv < vecs; ++v, cv += a.tx)
+      thread_sums(a, k, xb, radd, cv);
+    block_partials(a, k);
+    team_arrive(a, k, &s_f0, &s_last);
+    team_wait(a, k, s_f0);
+    for (int cv = k.tx_i, v = 0; v < a.vpt && cv < vecs; ++v, cv += a.tx)
+      thread_apply(a, k, xb, yb, radd, cv);
+    __syncthreads();
   }
 }
 
 template <typename T>
-cudaError_t launch_gn(const T* x, const float* radd, const float* scale,
-                      const float* bias, T* y, float* part, float* coef,
-                      int N, int S, int C, int G, int nchunk,
-                      int rows_per_chunk, float eps, int silu,
-                      cudaStream_t stream) {
-  const int cvecs = C / 8;
-  const int tx = cvecs < kThreads ? cvecs : kThreads;
-  const dim3 sgrid((cvecs + tx - 1) / tx, nchunk, N);
-  gn_stats_kernel<T><<<sgrid, kThreads, 0, stream>>>(x, radd, part, S, C,
-                                                     rows_per_chunk, tx);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  gn_finalize_kernel<<<N, kThreads, 2 * G * sizeof(float), stream>>>(
-      part, radd, scale, bias, coef, S, C, G, nchunk, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const long long total_vecs = (long long)N * S * C / 8;
-  long long blocks = (total_vecs + kThreads - 1) / kThreads;
-  if (blocks > 132LL * 16) blocks = 132LL * 16;
-  gn_apply_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      x, coef, y, total_vecs, (long long)S * C, C, silu);
-  return cudaGetLastError();
+cudaError_t launch(GnArgs a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a);
+  if (smem > 48 * 1024) {  // past the default only for C in the thousands
+    const cudaError_t e = cudaFuncSetAttribute(
+        gn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int threads = (a.tx * a.ty + 31) / 32 * 32;
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gn_kernel<T>),
+                                     dim3(a.team * a.teams), dim3(threads),
+                                     args, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. radd may be null. part holds
-// N * nchunk * 2 * C floats, coef N * 2 * C floats. Returns a cudaError_t.
+// y = GN(x + radd)(+SiLU) over x (N, S, C); dtype 0 = float32,
+// 1 = bfloat16. radd may be null. The plan (tx, ty, vpt, team, teams, rows)
+// comes from ops/groupnorm.py::gn_plan; part holds teams * team * 2G
+// floats, stats teams * 2G; arrive and flag hold `teams` unsigned ints
+// each, arrive all zero (the kernel leaves it so). Returns a cudaError_t
+// code.
 int mimo_group_norm_fwd(const void* x, const void* radd, const void* scale,
-                        const void* bias, void* y, void* part, void* coef,
-                        int dtype, int N, int S, int C, int G, int nchunk,
-                        int rows_per_chunk, float eps, int silu, void* stream) {
-  if (C % 8 != 0 || C % G != 0 || nchunk < 1 || rows_per_chunk < 1)
+                        const void* bias, void* y, void* part, void* stats,
+                        void* arrive, void* flag, int dtype, int N, int S,
+                        int C, int G, float eps, int silu, int tx, int ty,
+                        int vpt, int team, int teams, int rows,
+                        void* stream) {
+  if (N < 1 || S < 1 || C % 8 != 0 || G < 1 || C % G != 0 || tx < 1 ||
+      ty < 1 || tx * ty > kMaxThreads || vpt < 1 || tx * vpt < C / 8 ||
+      team < 1 || teams < 1 || teams > N || rows < 1 ||
+      (long long)rows * (team - 1) >= S || (long long)rows * team < S ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  GnArgs a;
+  a.x = x;
+  a.radd = static_cast<const float*>(radd);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.y = y;
+  a.part = static_cast<float*>(part);
+  a.stats = static_cast<float*>(stats);
+  a.arrive = static_cast<unsigned*>(arrive);
+  a.flag = static_cast<unsigned*>(flag);
+  a.N = N;
+  a.S = S;
+  a.C = C;
+  a.G = G;
+  a.eps = eps;
+  a.silu = silu;
+  a.tx = tx;
+  a.ty = ty;
+  a.vpt = vpt;
+  a.team = team;
+  a.teams = teams;
+  a.rows = rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ra = static_cast<const float*>(radd);
-  const float* sc = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  float* pa = static_cast<float*>(part);
-  float* co = static_cast<float*>(coef);
-  if (dtype == 1)
-    return static_cast<int>(launch_gn<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(x), ra, sc, bi,
-        static_cast<__nv_bfloat16*>(y), pa, co, N, S, C, G, nchunk,
-        rows_per_chunk, eps, silu, st));
-  if (dtype == 0)
-    return static_cast<int>(launch_gn<float>(
-        static_cast<const float*>(x), ra, sc, bi, static_cast<float*>(y), pa,
-        co, N, S, C, G, nchunk, rows_per_chunk, eps, silu, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dtype == 1 ? launch<__nv_bfloat16>(a, st)
+                                     : launch<float>(a, st));
 }
 
 }  // extern "C"

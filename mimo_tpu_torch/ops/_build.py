@@ -16,6 +16,7 @@ There is no fallback: without ``nvcc`` or when the build fails, this raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,6 +25,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -41,10 +44,12 @@ _SIGNATURES = {
     "mimo_cuda_error_string": ([_I], ctypes.c_char_p),
     "mimo_flash_attention_fwd": (
         [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P], _I),
-    "mimo_group_norm_fwd": ([_P] * 7 + [_I] * 7 + [_F, _I, _P], _I),
+    "mimo_group_norm_fwd": ([_P] * 9 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
+                            _I),
+    "mimo_ln_rows_fwd": (
+        [_P, _L, _I, _I, _P, _P, _F, _P, _I, _I, _P] + [_I] * 4 + [_P], _I),
     "mimo_gemm_fwd": (
-        [_P, _L, _P, _P, _P, _L, _P, _L] + [_I] * 3
-        + [_P, _P, _P, _F, _P] + [_I] * 3 + [_P], _I),
+        [_P, _L, _P, _P, _P, _L, _P, _L] + [_I] * 4 + [_P], _I),
     "mimo_temporal_attention_fwd": ([_P, _P] + [_I] * 9 + [_F, _P], _I),
     "mimo_flash_ablate_fwd": (
         [_I, _I] + [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P], _I),
@@ -145,6 +150,18 @@ def build_log() -> str:
     """nvcc's output for the current library (ptxas register/smem use)."""
     log = library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA device ``dev`` (the launch
+    plans size their grids by it)."""
+    return _sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
 
 
 def check(err: int, what: str) -> None:

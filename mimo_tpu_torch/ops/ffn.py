@@ -1,9 +1,11 @@
 """The GEMM-chain ops of the transformer and motion blocks: the CUDA tile
-core in ``csrc/gemm.cu`` and the plain PyTorch version of each op.
+core in ``csrc/gemm.cu``, the LayerNorm row pass in ``csrc/ln_rows.cu``
+and the plain PyTorch version of each op.
 
 Counterpart of ``mimo_tpu/ops/ffn.py``. Every Pallas kernel there becomes one
-or two launches of one GEMM kernel with a LayerNorm prologue and a bias,
-bias + residual or GEGLU epilogue:
+or two launches of one GEMM kernel with a bias, bias + residual or GEGLU
+epilogue, after the LayerNorm row pass (``ln_rows``) where the kernel
+starts with a LayerNorm:
 
 - ``ffn_ln_geglu_fused``: ``x + W_d·(h·gelu_erf(g)) + b_d`` with
   ``[h ‖ g] = W_u·LN(x) + b_u`` (``_ffn_pallas_nsc``/``_snc``): an
@@ -28,13 +30,15 @@ the activation dtype; exact (erf) gelu in fp32.
 
 Each wrapper takes its plain version for CPU tensors only. For a CUDA tensor
 it launches the kernel or raises; ``<wrapper>.launches`` counts the calls
-that launched it.
+that launched it (``ln_rows.launches`` counts the LN passes, its own and
+those ``gemm`` runs).
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Any, Dict, Optional, Sequence, Tuple
+from functools import lru_cache
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +74,21 @@ def matmul_bias_residual_plain(x: torch.Tensor, lin_p: Params,
 
 def matmul_bias_plain(x: torch.Tensor, lin_p: Params) -> torch.Tensor:
     return linear(lin_p, x)
+
+
+def ln_rows_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float, pe: Optional[torch.Tensor] = None,
+                  pe_div: int = 1) -> torch.Tensor:
+    """LayerNorm of each row of x (..., K), rounded to x's dtype, then + the
+    PE row (pe (F, K)) of its frame: row r of the (R, K) view belongs to
+    frame (r // pe_div) % F."""
+    y = layer_norm({"scale": scale, "bias": bias}, x, eps)
+    if pe is None:
+        return y
+    k = x.shape[-1]
+    frames = (torch.arange(y.numel() // k, device=x.device) // pe_div) \
+        % pe.shape[0]
+    return (y.reshape(-1, k) + pe.to(y.dtype)[frames]).reshape(y.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +159,50 @@ def _once(tensors: Sequence[torch.Tensor], tag, build):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the LN row pass's plan (csrc/ln_rows.cu)
+# ---------------------------------------------------------------------------
+
+# lanes that share a row, and vectors (8 bf16) a lane holds at most
+LN_LANES = (8, 16, 32)
+LN_MAX_VECTORS = 6
+LN_WARPS = 8              # warps a block (kThreads / 32)
+LN_BLOCKS_PER_SM = 2      # its __launch_bounds__
+
+
+class LnPlan(NamedTuple):
+    """How ``ln_rows`` cuts an (m, k) call: ``lanes`` lanes share a row,
+    lane l of a row holding its vectors l, l + lanes, … (``vectors`` of
+    them, 0 for the wide-row kernel that reads a row twice); a warp takes
+    32 / lanes rows a step and walks ``steps_per_warp`` steps;
+    ``blocks`` blocks of LN_WARPS warps."""
+
+    lanes: int
+    vectors: int
+    steps_per_warp: int
+    blocks: int
+
+
+@lru_cache(maxsize=None)
+def ln_rows_plan(m: int, k: int, sms: int) -> LnPlan:
+    """The LN row pass's plan for m rows of k values on ``sms`` SMs: the
+    (lanes, vectors) that cover k/8 vectors with the fewest idle slots (then
+    the most vectors a lane), and a grid two blocks an SM deep whose warps
+    take equal runs of row steps."""
+    vecs = k // 8
+    if vecs > LN_LANES[-1] * LN_MAX_VECTORS:
+        return LnPlan(32, 0, 1, -(-m // LN_WARPS))
+    lanes, vectors = min(
+        ((lanes, -(-vecs // lanes)) for lanes in LN_LANES
+         if -(-vecs // lanes) <= LN_MAX_VECTORS),
+        key=lambda lv: (lv[0] * lv[1] - vecs, lv[0]))
+    steps = -(-m // (32 // lanes))
+    per = -(-steps // min(steps, LN_BLOCKS_PER_SM * LN_WARPS * sms))
+    warps = -(-steps // per)
+    return LnPlan(lanes, vectors, per, -(-warps // LN_WARPS))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
 # ---------------------------------------------------------------------------
 
 
@@ -169,12 +231,46 @@ def _vec(t: Optional[torch.Tensor], n: int, dev) -> Optional[torch.Tensor]:
                  lambda: t.to(device=dev, dtype=torch.bfloat16).contiguous())
 
 
+def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float, pe: Optional[torch.Tensor] = None,
+            pe_div: int = 1) -> torch.Tensor:
+    """``ln_rows_plain`` of x (..., K): on the card the kernel of
+    ``csrc/ln_rows.cu`` (x bf16, rows may be strided), into a new
+    contiguous bf16 tensor of x's shape; the plain version for a CPU
+    tensor."""
+    if not x.is_cuda:
+        return ln_rows_plain(x, scale, bias, eps, pe, pe_div)
+    x2 = _rows(x, "x")
+    r, k = x2.shape
+    if k % 8 or r == 0:
+        raise ValueError(f"ln_rows kernel: needs rows and K % 8 == 0, got "
+                         f"{tuple(x.shape)}")
+    dev = x2.device
+    scale_c, bias_c = _vec(scale, k, dev), _vec(bias, k, dev)
+    pe_c = None
+    if pe is not None:
+        if pe.dim() != 2 or pe_div < 1:
+            raise ValueError("ln_rows kernel: pe must be (F, K), pe_div >= 1")
+        pe_c = _vec(pe, k, dev)
+    plan = ln_rows_plan(r, k, _build.sm_count(dev))
+    y = torch.empty((r, k), dtype=torch.bfloat16, device=dev)
+    err = _build.load_library().mimo_ln_rows_fwd(
+        x2.data_ptr(), x2.stride(0), r, k, scale_c.data_ptr(),
+        bias_c.data_ptr(), float(eps),
+        pe_c.data_ptr() if pe_c is not None else None, int(pe_div),
+        pe_c.shape[0] if pe_c is not None else 1, y.data_ptr(), *plan,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ln_rows")
+    ln_rows.launches += 1
+    return y.reshape(x.shape)
+
+
 def gemm(a: torch.Tensor, w, *, bias: Optional[torch.Tensor] = None,
          res: Optional[torch.Tensor] = None, geglu: bool = False,
          ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
          pe: Optional[torch.Tensor] = None, pe_div: int = 1) -> torch.Tensor:
     """(R, n) = epilogue(prologue(a) · w) through ``mimo_gemm_fwd``: the
-    tile core, after the LayerNorm row kernel when ``ln`` is given.
+    tile core, after ``ln_rows`` when ``ln`` is given.
 
     a: (..., K) bf16 CUDA; w: (K, n), a tuple of (K, ·) weights read side
     by side, or (K, 2n) with ``geglu`` (value columns, then gate columns),
@@ -183,7 +279,11 @@ def gemm(a: torch.Tensor, w, *, bias: Optional[torch.Tensor] = None,
     of a first (into an (R, K) workspace); ``pe`` (F, K) is added to the
     normalised row r, which belongs to frame (r // pe_div) % F. Epilogue:
     + bias, + bias + res (res (R, n)), or GEGLU with bias (2n,)."""
+    if pe is not None and ln is None:
+        raise ValueError("gemm kernel: pe needs ln")
     a2 = _rows(a, "a")
+    if ln is not None:
+        a2 = ln_rows(a2, ln[0], ln[1], ln[2], pe, pe_div)
     r, k = a2.shape
     ws = tuple(w) if isinstance(w, (tuple, list)) else (w,)
     for t in ws:
@@ -207,16 +307,6 @@ def gemm(a: torch.Tensor, w, *, bias: Optional[torch.Tensor] = None,
                              f"not match the ({r}, {n}) output")
     if geglu and bias_c is None:
         raise ValueError("gemm kernel: the GEGLU epilogue needs its bias")
-    scale_c = bias_ln = ln_out = None
-    eps = 0.0
-    if ln is not None:
-        scale_c, bias_ln, eps = _vec(ln[0], k, dev), _vec(ln[1], k, dev), ln[2]
-        ln_out = torch.empty((r, k), dtype=torch.bfloat16, device=dev)
-    pe_c = None
-    if pe is not None:
-        if ln is None or pe.dim() != 2:
-            raise ValueError("gemm kernel: pe must be (F, K) and needs ln")
-        pe_c = _vec(pe, k, dev)
     epi = _EPI_GEGLU if geglu else (_EPI_BIAS_RES if res2 is not None
                                     else _EPI_BIAS)
     out = torch.empty((r, n), dtype=torch.bfloat16, device=dev)
@@ -227,9 +317,7 @@ def gemm(a: torch.Tensor, w, *, bias: Optional[torch.Tensor] = None,
     err = _build.load_library().mimo_gemm_fwd(
         a2.data_ptr(), a2.stride(0), wp.data_ptr(), ptr(bias_c), ptr(res2),
         res2.stride(0) if res2 is not None else 0, out.data_ptr(),
-        out.stride(0), r, n, k, ptr(scale_c), ptr(bias_ln), ptr(ln_out),
-        float(eps), ptr(pe_c), int(pe_div),
-        pe_c.shape[0] if pe_c is not None else 1, epi,
+        out.stride(0), r, n, k, epi,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gemm")
     return out
@@ -294,6 +382,7 @@ def matmul_bias(x: torch.Tensor, lin_p: Params) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
+ln_rows.launches = 0
 ffn_ln_geglu_fused.launches = 0
 qkv_ln_fused.launches = 0
 matmul_bias_residual.launches = 0

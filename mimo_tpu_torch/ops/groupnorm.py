@@ -1,12 +1,17 @@
 """Fused GroupNorm (+ per-row add, + SiLU): the CUDA kernel in
-``csrc/groupnorm.cu`` and its plain PyTorch version.
+``csrc/groupnorm.cu``, its launch plan and its plain PyTorch version.
 
 Counterpart of ``mimo_tpu/ops/groupnorm.py`` (``group_norm_fused`` and its
-three Pallas variants, which become one split-S design here). Statistics are
-fp32 per (batch row, group) over every non-channel axis, with
-var = E[x²] − E[x]²; the affine is fp32; SiLU runs in fp32 before the single
-cast back; the optional (N, C) ``row_add`` (the resnet time-embedding add)
-joins x before the statistics.
+three Pallas variants). Statistics are fp32 per (batch row, group) over
+every non-channel axis, with var = E[x²] − E[x]²; the affine is fp32; SiLU
+runs in fp32 before the single cast back; the optional (N, C) ``row_add``
+(the resnet time-embedding add) joins x before the statistics.
+
+The kernel is one cooperative launch of co-resident blocks: a team of
+blocks a batch row, all batch rows at once, each block summing its share
+of the row's S rows, then (once the last block of the team has published
+the statistics) reading it again to normalise it. ``gn_plan`` cuts the
+grid.
 
 ``group_norm_fused`` takes the plain version for CPU tensors only. For a
 CUDA tensor it launches the kernel or raises. ``group_norm_fused.launches``
@@ -15,16 +20,26 @@ counts kernel launches.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from functools import lru_cache
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from mimo_tpu_torch.ops import _build
 
-_THREADS = 256
-_TARGET_BLOCKS = 4 * 132      # about four stats blocks per H100 SM
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/groupnorm.cu: threads a block at most (kMaxThreads) and the blocks
+# an SM holds at once (its __launch_bounds__), so every block of the
+# cooperative grid is resident together
+MAX_THREADS = 512
+BLOCKS_PER_SM = 2
+# the thread rows a block aims for: tx * ty near this many threads
+TARGET_THREADS = 256
+# shared memory of an H100 SM, and the part the system keeps per block
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
 
 
 def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -45,16 +60,79 @@ def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-def stats_chunking(n: int, s: int, c: int) -> Tuple[int, int]:
-    """(S-chunks, rows per chunk) of the stats pass: enough blocks to fill
-    the card, each chunk covering at least one row per thread row."""
-    cvecs = c // 8
-    tx = min(cvecs, _THREADS)
-    ty = _THREADS // tx
-    ctiles = -(-cvecs // tx)
-    nchunk = max(1, min(-(-s // ty), -(-_TARGET_BLOCKS // (n * ctiles))))
-    rows = -(-s // nchunk)
-    return -(-s // rows), rows
+class GNPlan(NamedTuple):
+    """How the kernel cuts an (N, S, C) call. A block's threads are ``ty``
+    rows of ``tx`` threads; thread (i, j) takes 8-channel vectors
+    j, j + tx, … (``vpt`` of them, those below C/8) of the block's rows
+    i, i + ty, …. A team of ``team`` blocks walks batch rows
+    n = t, t + teams, …; block b of a team takes rows b·rows … of each."""
+
+    tx: int
+    ty: int
+    vpt: int
+    team: int
+    teams: int
+    rows: int
+
+    @property
+    def threads(self) -> int:
+        """Threads a block (a whole number of warps)."""
+        return -(-self.tx * self.ty // 32) * 32
+
+    def smem(self, c: int, groups: int) -> int:
+        """Dynamic shared memory of a block (csrc/groupnorm.cu: smem_bytes):
+        the (ty, 2C) fp32 scratch of the per-channel sums and 2G fp32
+        statistics."""
+        return self.ty * 2 * c * 4 + -(-2 * groups * 4 // 16) * 16
+
+
+@lru_cache(maxsize=None)
+def gn_plan(n: int, s: int, c: int, sms: int) -> GNPlan:
+    """The kernel's plan for GroupNorm of an (n, s, c) tensor on a card of
+    ``sms`` SMs: a team a batch row while the grid has blocks for them all
+    (else teams walk several), each team as large as the grid allows, so
+    every SM streams; a thread row of tx = C/8 threads (vpt vectors a
+    thread past MAX_THREADS), ty thread rows near TARGET_THREADS
+    threads."""
+    vecs = c // 8
+    vpt = -(-vecs // MAX_THREADS)
+    tx = -(-vecs // vpt)
+    ty = max(1, min(MAX_THREADS // tx, round(TARGET_THREADS / tx)))
+    blocks = BLOCKS_PER_SM * sms
+    teams = min(n, blocks)
+    team = max(1, min(s, blocks // teams))
+    rows = -(-s // team)
+    team = -(-s // rows)
+    return GNPlan(tx, ty, vpt, team, teams, rows)
+
+
+class _Workspace(NamedTuple):
+    """What a call's blocks share through global memory: ``teams`` arrival
+    counters (all zero between calls: the kernel leaves them so), as many
+    flags, and fp32 room for the partials and statistics."""
+
+    counters: torch.Tensor
+    floats: torch.Tensor
+
+
+# (device index, stream) -> its calls' workspace (calls on one stream run
+# one after another, so they share it)
+_WORKSPACES: Dict[Tuple[int, int], _Workspace] = {}
+
+
+def _workspace(dev: torch.device, stream: int, teams: int,
+               floats: int) -> _Workspace:
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.counters.numel() < 2 * teams \
+            or ws.floats.numel() < floats:
+        blocks = BLOCKS_PER_SM * _build.sm_count(dev)
+        ws = _Workspace(
+            torch.zeros(2 * max(teams, blocks), dtype=torch.int32, device=dev),
+            torch.empty(max(floats, 2 * blocks * 64), dtype=torch.float32,
+                        device=dev))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def _group_norm_cuda(x, scale, bias, groups, eps, fuse_silu, row_add):
@@ -66,7 +144,12 @@ def _group_norm_cuda(x, scale, bias, groups, eps, fuse_silu, row_add):
         raise ValueError(f"group norm kernel needs C % 8 == 0 and "
                          f"C % groups == 0 (C={c}, groups={groups})")
     xc = x.contiguous()
+    if xc.data_ptr() % 16:
+        xc = xc.clone()
+    y = torch.empty_like(xc)
     s = xc.numel() // (n * c)
+    if xc.numel() == 0:
+        return y
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     scale_f = scale.to(**f32).contiguous()
@@ -74,17 +157,24 @@ def _group_norm_cuda(x, scale, bias, groups, eps, fuse_silu, row_add):
     radd = None
     if row_add is not None:
         radd = row_add.reshape(n, c).to(**f32).contiguous()
-    nchunk, rows = stats_chunking(n, s, c)
-    part = torch.empty((n, nchunk, 2, c), **f32)
-    coef = torch.empty((n, 2, c), **f32)
-    y = torch.empty_like(xc)
-    lib = _build.load_library()
-    err = lib.mimo_group_norm_fwd(
+    plan = gn_plan(n, s, c, _build.sm_count(dev))
+    if plan.smem(c, groups) > SM_SMEM // BLOCKS_PER_SM - BLOCK_RESERVED:
+        raise ValueError(f"group norm kernel: C={c} needs "
+                         f"{plan.smem(c, groups)} bytes of shared memory a "
+                         f"block, more than {BLOCKS_PER_SM} blocks an SM "
+                         f"leave")
+    # the partials (teams, team, 2G), then the statistics (teams, 2G)
+    part_n = plan.teams * plan.team * 2 * groups
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = _workspace(dev, stream, plan.teams,
+                    part_n + plan.teams * 2 * groups)
+    floats, counters = ws.floats.data_ptr(), ws.counters.data_ptr()
+    err = _build.load_library().mimo_group_norm_fwd(
         xc.data_ptr(), radd.data_ptr() if radd is not None else None,
-        scale_f.data_ptr(), bias_f.data_ptr(), y.data_ptr(), part.data_ptr(),
-        coef.data_ptr(), _DTYPE_CODE[x.dtype], n, s, c, groups, nchunk, rows,
-        float(eps), int(fuse_silu),
-        torch.cuda.current_stream(dev).cuda_stream)
+        scale_f.data_ptr(), bias_f.data_ptr(), y.data_ptr(), floats,
+        floats + 4 * part_n, counters, counters + 2 * ws.counters.numel(),
+        _DTYPE_CODE[x.dtype], n, s, c, groups, float(eps), int(fuse_silu),
+        *plan, stream)
     _build.check(err, "group_norm_fused")
     return y
 

@@ -1,7 +1,12 @@
 """The port's GroupNorm (plain version, as the wrapper runs it on CPU
 tensors) against the JAX package: the Pallas kernels ``_gn_pallas``
 (resident and two-phase) and ``_gn_pallas_snc`` in interpret mode, and
-``layers.group_norm``; with row_add, SiLU and both eps values.
+``layers.group_norm``; with row_add, SiLU and both eps values. Then the
+CUDA kernel's launch plan (``gn_plan``) at every shape the main path
+gives it, and a torch emulation of the kernel's arithmetic in its order
+(the plan's split of rows and channels, the fixed tree of partial sums,
+the coefficient fold), held to the plain version and to the Pallas
+kernels.
 
 Tolerance: atol 1e-4, the one tests/test_groupnorm_kernel.py holds the
 Pallas kernels to against XLA (fp32 statistics; E[x²]−E[x]² in fp32 over
@@ -11,6 +16,7 @@ centred variance, and the two sides sum in other orders).
 
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -30,6 +36,8 @@ CASES = [
     ((3, 8, 8, 64), 8, 1e-6, False, False),      # transformer / motion norm
     ((1, 130, 7, 256), 32, 1e-6, False, True),   # VAE norm, ragged rows
     ((3, 9, 5, 64), 8, 1e-5, True, False),
+    ((2, 5, 7, 960), 32, 1e-5, False, True),    # up-block concat width:
+                                                 # C/G = 30, not a multiple of 8
 ]
 
 
@@ -99,15 +107,170 @@ def test_layers_group_norm_matches_jax(shape, groups, eps, radd, silu):
     np.testing.assert_allclose(nn(got), np.asarray(ref), atol=ATOL)
 
 
+# the GroupNorm calls of one UNet3D step (48 frames: 64x98 latents and
+# 32x49, 16x25, 8x13 below; the up blocks' first norms see the concatenated
+# skip channels) and of the VAE decoder (vae_chunk 8 frames, up to 512x784)
+UNET3D_SHAPES = (
+    [(48, 6272, c) for c in (320, 640, 960)]
+    + [(48, 1568, c) for c in (320, 640, 960, 1280, 1920)]
+    + [(48, 400, c) for c in (640, 1280, 1920, 2560)]
+    + [(48, 104, c) for c in (1280, 2560)])
+VAE_SHAPES = [(8, 6272, 512), (8, 25088, 512), (8, 100352, 512),
+              (8, 100352, 256), (8, 401408, 256), (8, 401408, 128)]
+H100_SMS = 132
+
+
+def _check_plan(n, s, c, sms, groups=32):
+    plan = G.gn_plan(n, s, c, sms)
+    blocks = G.BLOCKS_PER_SM * sms
+    # a cooperative grid: every block resident at once, two an SM
+    assert plan.team * plan.teams <= blocks
+    assert G.BLOCKS_PER_SM * (plan.smem(c, groups) + G.BLOCK_RESERVED) \
+        <= G.SM_SMEM
+    assert plan.tx * plan.ty <= plan.threads <= G.MAX_THREADS
+    assert plan.threads % 32 == 0
+    # every (batch row, row) once: teams walk n = t, t + teams, ...; block
+    # b of a team takes rows b·rows ..., none empty
+    assert plan.teams == min(n, blocks)
+    assert (plan.team - 1) * plan.rows < s <= plan.team * plan.rows
+    seen = np.zeros(n, int)
+    for t in range(plan.teams):
+        seen[t::plan.teams] += 1
+    assert (seen == 1).all()
+    # every 8-channel vector once: thread column j takes j + k·tx, k < vpt
+    vecs = [j + k * plan.tx for j in range(plan.tx) for k in range(plan.vpt)]
+    assert sorted(v for v in vecs if v < c // 8) == list(range(c // 8))
+    return plan
+
+
+@pytest.mark.parametrize("n,s,c", UNET3D_SHAPES + VAE_SHAPES)
+def test_plan_covers_main_path_in_one_round(n, s, c):
+    """Every UNet3D and VAE-decoder GroupNorm: one launch, every batch row
+    at once (a team each), and at least 90% of the grid's blocks busy."""
+    plan = _check_plan(n, s, c, H100_SMS)
+    assert plan.teams == n
+    assert plan.team * plan.teams >= 0.9 * G.BLOCKS_PER_SM * H100_SMS
+
+
 @pytest.mark.parametrize("n,s,c", [
     (48, 6272, 320), (48, 104, 1280), (8, 401408, 128), (1, 3, 2560),
 ])
 def test_stats_chunking_covers_every_row(n, s, c):
-    """The split-S plan of the kernel: every row in exactly one chunk, no
-    empty chunk, and the block count fills the card."""
-    nchunk, rows = G.stats_chunking(n, s, c)
-    assert nchunk >= 1 and rows >= 1
-    assert (nchunk - 1) * rows < s <= nchunk * rows
+    """The plan's split of a batch row's S rows between a team's blocks:
+    every row in exactly one block, no empty block."""
+    plan = _check_plan(n, s, c, H100_SMS)
+    covered = np.zeros(s, int)
+    for b in range(plan.team):
+        covered[b * plan.rows:(b + 1) * plan.rows] += 1
+    assert (covered == 1).all()
+
+
+def _xor_tree(v: torch.Tensor) -> torch.Tensor:
+    """A warp's butterfly sum over its 32 lanes (last axis): every lane
+    ends with the same total, in the kernel's order."""
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., idx ^ o]
+    return v[..., 0]
+
+
+def _lane_sum(items: torch.Tensor) -> torch.Tensor:
+    """Lane l sums items l, l + 32, ... of the last axis in order, then the
+    warp's butterfly."""
+    k = items.shape[-1]
+    pad = torch.nn.functional.pad(items, (0, -k % 32))
+    lanes = pad.reshape(*items.shape[:-1], -1, 32)
+    acc = torch.zeros_like(lanes[..., 0, :])
+    for i in range(lanes.shape[-2]):
+        acc = acc + lanes[..., i, :]
+    return _xor_tree(acc)
+
+
+def gn_emulated(x, scale, bias, groups, eps, silu, row_add, plan):
+    """What csrc/groupnorm.cu computes for the (N, S, C) x under ``plan``,
+    sum by sum in its order: a thread's rows in order, the thread rows of
+    a channel in order, a warp per group over its channels, the last block
+    over the team's slots; then mul / add per channel and one rounding."""
+    n, s, c = x.shape
+    cpg = c // groups
+    out = torch.empty_like(x)
+    for b in range(n):
+        xa = x[b].float()
+        if row_add is not None:
+            xa = xa + row_add[b].float()
+        # (team, rows, C), past S zero: a thread adds nothing there
+        xa = torch.nn.functional.pad(xa, (0, 0, 0, plan.team * plan.rows - s))
+        blocks = xa.reshape(plan.team, plan.rows, c)
+        steps = -(-plan.rows // plan.ty)
+        blocks = torch.nn.functional.pad(
+            blocks, (0, 0, 0, steps * plan.ty - plan.rows))
+        acc_s = torch.zeros(plan.team, plan.ty, c)
+        acc_q = torch.zeros(plan.team, plan.ty, c)
+        for i in range(steps):
+            rows = blocks[:, i * plan.ty:(i + 1) * plan.ty]
+            acc_s = acc_s + rows
+            acc_q = acc_q + rows * rows
+        ch_s, ch_q = acc_s[:, 0], acc_q[:, 0]
+        for y in range(1, plan.ty):
+            ch_s, ch_q = ch_s + acc_s[:, y], ch_q + acc_q[:, y]
+        part_s = _lane_sum(ch_s.reshape(plan.team, groups, cpg))
+        part_q = _lane_sum(ch_q.reshape(plan.team, groups, cpg))
+        tot_s = _lane_sum(part_s.t())
+        tot_q = _lane_sum(part_q.t())
+        count = torch.tensor(float(s * cpg))
+        mean = tot_s / count
+        rstd = torch.rsqrt(tot_q / count - mean * mean + eps)
+        g = torch.arange(c) // cpg
+        mul = rstd[g] * scale.float()
+        add = bias.float() - mean[g] * mul
+        if row_add is not None:
+            add = add + row_add[b].float() * mul
+        y = x[b].float() * mul + add
+        if silu:
+            y = y / (1.0 + torch.exp(-y))
+        out[b] = y.to(x.dtype)
+    return out
+
+
+def _emulate(x, scale, bias, groups, eps, silu, row_add, sms):
+    n, c = x.shape[0], x.shape[-1]
+    s = x.size // (n * c)
+    plan = G.gn_plan(n, s, c, sms)
+    return plan, nn(gn_emulated(
+        tt(x.reshape(n, s, c)), tt(scale), tt(bias), groups, eps, silu,
+        None if row_add is None else tt(row_add), plan)).reshape(x.shape)
+
+
+# sms: the H100's 132 (a team of many blocks a batch row); 1, where teams
+# of one or two blocks walk several batch rows
+@pytest.mark.parametrize("sms", [H100_SMS, 1])
+@pytest.mark.parametrize("shape,groups,eps,radd,silu", CASES)
+def test_emulated_kernel_matches_plain(shape, groups, eps, radd, silu, sms):
+    x, scale, bias, row_add = _inputs(shape, radd, 5)
+    _, got = _emulate(x, scale, bias, groups, eps, silu, row_add, sms)
+    want = _port(x, scale, bias, groups, eps, silu, row_add)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,groups,eps,radd,silu", CASES)
+def test_emulated_kernel_matches_pallas(shape, groups, eps, radd, silu):
+    """The emulation against the three Pallas variants in interpret mode."""
+    x, scale, bias, row_add = _inputs(shape, radd, 6)
+    n, c = shape[0], shape[-1]
+    s = x.size // (n * c)
+    _, got = _emulate(x, scale, bias, groups, eps, silu, row_add, H100_SMS)
+    ja = [jnp.asarray(scale), jnp.asarray(bias), groups, eps, silu]
+    radd_j = None if row_add is None else jnp.asarray(row_add)
+    x3 = jnp.asarray(x.reshape(n, s, c))
+    with pltpu.force_tpu_interpret_mode():
+        refs = [JG._gn_pallas(x3, *ja, force_two_phase=two, row_add=radd_j)
+                for two in (False, True)]
+        y_t = JG._gn_pallas_snc(jnp.transpose(x3, (1, 0, 2)), *ja,
+                                row_add=radd_j)
+    refs.append(jnp.transpose(y_t, (1, 0, 2)))
+    for ref in refs:
+        np.testing.assert_allclose(got, np.asarray(ref).reshape(shape),
+                                   atol=ATOL)
 
 
 def test_wrapper_counts_only_kernel_launches():
