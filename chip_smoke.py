@@ -20,12 +20,13 @@ Phases, in order; any failure exits non-zero:
    and operations over their peak rate; for attention the operations also
    take the exp2 of every logit, spread over the special-function units
    and the FMA pipes, see ``exp2_ms``); GroupNorm at UNet levels 0-3 and
-   the VAE's shapes, and the LN row pass (``ln_rows``) at levels 0-3, each
-   also run twice at level 0, which must give equal bits; the flash kernel
-   also at the full
-   main-path batch beside the ablation tool's ``full`` build (the first,
-   mma.sync design), and beside SDPA in interleaved rounds; the temporal
-   attention chain at UNet levels 0-3, and its core alone at those levels
+   the VAE's shapes (twice in each of its two tiers, which must give equal
+   bits), and the LN row pass (``ln_rows``) at levels 0-3, and both of
+   its kernels at K = 64 / 136 / 232 / 1280 / 2048 (twice at level 0,
+   equal bits); the flash kernel also at the full main-path batch beside
+   the ablation tool's ``full`` build (the first, mma.sync design), and
+   beside SDPA in interleaved rounds; the temporal attention chain at UNet
+   levels 0-3, and its core alone at those levels
    and at F = 5 and 32 (beside SDPA on (B·S, H, F, d) copies);
 4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``): every
    mode, in both K/V layouts, against its plain version at UNet levels 0
@@ -207,6 +208,7 @@ def phase_build() -> None:
             log(f"  ptxas {name}: {regs}; {spills}")
             if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
                                         "tattn_kernel", "gn_kernel",
+                                        "gn_resident_kernel",
                                         "ln_rows_kernel",
                                         "ln_rows_wide_kernel")) \
                     and not spills.startswith("0 bytes"):
@@ -405,36 +407,25 @@ def bit_equal(label: str, fn) -> None:
 
 
 def group_norm_cases(GN, randn):
-    """``group_norm_fused`` against ``group_norm_plain`` at UNet levels 0-3
-    and the VAE's shapes, beside F.group_norm where no row add or SiLU is
-    fused; then one level-0 call twice, which must give equal bits."""
+    """``group_norm_fused`` against ``group_norm_plain`` at every GroupNorm
+    shape of a UNet3D step (levels 0-3) and of the VAE decoder
+    (``tools/time_norms.py::GN_CASES``), beside F.group_norm where no row
+    add or SiLU is fused; then a level-0 call (the resident tier's clusters
+    of 16), a level-1 call (clusters of 6) and a level-0 call at C = 960
+    (the stream tier) each twice, which must give equal bits; then small
+    and odd shapes through both tiers."""
+    from mimo_tpu_torch.tools import time_norms as TN
     why = ("bf16 output rounding (<= 1 ulp = 2^-7 relative) on fp32 "
            "statistics summed in another order")
     bf = torch.bfloat16
-    cases = [
-        # (replaces, n, s, c, groups, eps, row_add, silu): UNet level 0's
-        # resnet norm2 (the time-embedding add + SiLU), its transformer norm
-        # and the up block's concat width (norm1, C = 960: C/G = 30); the
-        # transformer / motion norms of levels 1-3 (16x25 and 8x13
-        # latents); the VAE decoder's mid-block norm and a full-resolution
-        # one
-        ("mimo_tpu/ops/groupnorm.py:221", 48, 6272, 320, 32, 1e-5, True, True),
-        ("mimo_tpu/ops/groupnorm.py:221", 48, 6272, 320, 32, 1e-6, False,
-         False),
-        ("mimo_tpu/ops/groupnorm.py:221", 48, 6272, 960, 32, 1e-5, False,
-         True),
-        ("mimo_tpu/ops/groupnorm.py:221", 48, 1568, 640, 32, 1e-6, False,
-         False),
-        ("mimo_tpu/ops/groupnorm.py:221", 48, 400, 1280, 32, 1e-6, False,
-         False),
-        ("mimo_tpu/ops/groupnorm.py:221", 48, 104, 1280, 32, 1e-6, False,
-         False),
-        ("mimo_tpu/ops/groupnorm.py:275", 8, 6272, 512, 32, 1e-6, False, False),
-        ("mimo_tpu/ops/groupnorm.py:298", 8, 401408, 128, 32, 1e-6, False, True),
-    ]
     entries = []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for replaces, n, s, c, groups, eps, radd, silu in cases:
+    for n, s, c, radd, silu in TN.GN_CASES:
+        groups, eps = 32, TN.gn_eps(silu)
+        # the Pallas variant the JAX package takes there: the VAE's frames
+        # resident in VMEM at 64x98, two-phase above; the UNet's (S, N, C)
+        replaces = ("mimo_tpu/ops/groupnorm.py:"
+                    + ("221" if n == 48 else "275" if s == 6272 else "298"))
         x = randn(n, s, c, scale=3.0) + 0.5
         scale = randn(c).float() * 0.5 + 1.0
         bias = randn(c).float() * 0.5
@@ -442,11 +433,14 @@ def group_norm_cases(GN, randn):
         args = (x, scale, bias, groups, eps, silu, ra)
         got = call_wrapper(GN.group_norm_fused, *args)
         torch.cuda.synchronize()
-        plan = GN.gn_plan(n, s, c, sms)
+        plan = GN.gn_plan(n, s, c, groups, 2, sms)
         label = (f"group_norm_fused ({n}, {s}, {c}) G={groups} eps={eps}"
                  f"{' +row_add' if radd else ''}{' +silu' if silu else ''} "
-                 f"[{plan.teams} teams x {plan.team} blocks x {plan.rows} "
-                 f"rows]")
+                 + (f"[resident: clusters of {plan.cluster} x {plan.rows} "
+                    f"rows x {plan.cw} channels]"
+                    if isinstance(plan, GN.ResidentPlan) else
+                    f"[stream: {plan.teams} teams x {plan.team} blocks x "
+                    f"{plan.rows} rows]"))
         err = check_close(label, got, GN.group_norm_plain(*args), 1e-2, 1e-2,
                           why)
         # one read and one write of x; ~10 fp32 operations an element
@@ -464,42 +458,73 @@ def group_norm_cases(GN, randn):
                              "mimo_tpu_torch/csrc/groupnorm.cu", replaces,
                              label, err, lambda: GN.group_norm_fused(*args),
                              lambda: GN.group_norm_plain(*args), work, library)
-        log(f"    {3 * x.numel() * 2 / (entry['ms'] * 1e-3) / 1e9:.0f} GB/s "
-            f"for 2 reads + 1 write")
+        log(f"    {2 * x.numel() * 2 / (entry['ms'] * 1e-3) / 1e9:.0f} GB/s "
+            f"for 1 read + 1 write")
         entries.append(entry)
-    x = randn(48, 6272, 320, scale=3.0) + 0.5
-    args = (x, randn(320).float() + 1.0, randn(320).float(), 32, 1e-5, True,
-            randn(48, 320))
-    bit_equal("group_norm_fused (48, 6272, 320) +row_add +silu",
-              lambda: GN.group_norm_fused(*args))
+    for n, s, c in ((48, 6272, 320), (48, 1568, 640), (48, 6272, 960)):
+        x = randn(n, s, c, scale=3.0) + 0.5
+        args = (x, randn(c).float() + 1.0, randn(c).float(), 32, 1e-5, True,
+                randn(n, c))
+        bit_equal(f"group_norm_fused ({n}, {s}, {c}) +row_add +silu",
+                  lambda: GN.group_norm_fused(*args))
+    # small and odd shapes through both tiers (forced), fp32 and bf16: a
+    # cluster of 8 blocks with a ragged last one (the slice budget made
+    # small), C/G = 4, 8, 30 and 80, a chunk that is all of C, one row
+    for (n, s, c), groups, dtype, budget in (
+            ((2, 333, 320), 32, torch.float32, 7000),
+            ((3, 910, 128), 32, bf, GN.SLICE_BUDGET),
+            ((2, 50, 960), 32, torch.float32, GN.SLICE_BUDGET),
+            ((1, 1, 2560), 32, bf, GN.SLICE_BUDGET),
+            ((5, 1000, 24), 3, bf, GN.SLICE_BUDGET)):
+        x = (randn(n, s, c, scale=3.0) + 0.5).to(dtype)
+        args = (x, randn(c).float() + 1.0, randn(c).float(), groups, 1e-5,
+                True, randn(n, c))
+        want = GN.group_norm_plain(*args)
+        tol = 1e-2 if dtype == bf else 1e-4
+        for tier in ("stream", "resident"):
+            plan = GN.gn_plan(n, s, c, groups, x.element_size(), sms,
+                              tier=tier, budget=budget)
+            label = f"group_norm {tier} ({n}, {s}, {c}) G={groups} {dtype}"
+            check_close(f"{label} {plan}",
+                        GN.group_norm_cuda(*args, plan=plan), want, tol, tol,
+                        why if dtype == bf else "fp32 output, sums in "
+                        "another order")
+            bit_equal(label, lambda: GN.group_norm_cuda(*args, plan=plan))
     return entries
 
 
 def ln_rows_cases(FF, randn):
     """The LN row pass (``ln_rows``, the tile core's LN prologue) against
-    ``ln_rows_plain`` at UNet levels 0-3 (48 frames), beside F.layer_norm;
-    with the motion modules' PE at level 0; at the ragged K = 232; then one
-    level-0 call twice, which must give equal bits."""
+    ``ln_rows_plain`` at UNet levels 0-3 (48 frames) and with the motion
+    modules' PE at level 0 (``tools/time_norms.py::LN_CASES``), beside
+    F.layer_norm; the PE at level 3 (the wide-row kernel, as at levels
+    2-3) and K = 232 (ragged); then K = 232, 136 (17 vectors: 8 lanes x 3,
+    some idle), 64 (one vector a lane), 1280 and 2048 (past the register
+    plan) through both kernels (forced); then one level-0 call twice,
+    which must give equal bits."""
     import torch.nn.functional as F
+    from mimo_tpu_torch.tools import time_norms as TN
     why = ("LN rounded to bf16 (then + PE, rounded again) on fp32 statistics "
            "(E[x^2] - E[x]^2 against a centred variance, summed in another "
            "order): |d| <= 2^-6 max|ref| (two bf16 ulps of the largest "
            "value)")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     entries = []
-    # (rows, K, PE frames): rows (b·F + f)·S + s with S = 6272 for the PE
-    for rows, c, frames in ((48 * 6272, 320, 0), (48 * 1568, 640, 0),
-                            (48 * 400, 1280, 0), (48 * 104, 1280, 0),
-                            (2 * 24 * 6272, 320, 24), (1000, 232, 0)):
+    # (rows, K, PE frames): rows (b·F + f)·S + s of a CFG pair of F frames
+    # for the PE
+    for rows, c, frames in TN.LN_CASES + [(2 * 24 * 104, 1280, 24),
+                                          (1000, 232, 0)]:
         x = randn(rows, c, scale=2.0) + 0.3
         scale, bias = randn(c, scale=0.3) + 1.0, randn(c, scale=0.3)
         pe = randn(frames, c, scale=0.5) if frames else None
-        args = (x, scale, bias, 1e-5, pe, 6272)
+        args = (x, scale, bias, 1e-5, pe, rows // (2 * frames) if frames else 1)
         got = call_wrapper(FF.ln_rows, *args)
         torch.cuda.synchronize()
         plan = FF.ln_rows_plan(rows, c, sms)
         label = (f"ln_rows R={rows} K={c}{' +pe F=%d' % frames if frames else ''}"
-                 f" [{plan.lanes} lanes x {plan.vectors} vectors a row]")
+                 + (f" [{plan.lanes} lanes x {plan.vectors} vectors a row, "
+                    f"{plan.steps_per_warp} row steps a warp]" if plan.vectors
+                    else " [wide-row kernel: a warp a row]"))
         want = FF.ln_rows_plain(*args)
         err = check_close(label, got, want,
                           float(want.float().abs().max()) / 64, 0.0, why)
@@ -515,6 +540,18 @@ def ln_rows_cases(FF, randn):
             "mimo_tpu/ops/ffn.py:245", label, err,
             lambda: FF.ln_rows(*args), lambda: FF.ln_rows_plain(*args), work,
             library))
+    for c in (232, 136, 64, 1280, 2048):
+        x = randn(999, c, scale=2.0) + 0.3
+        pe = randn(5, c, scale=0.5)
+        args = (x, randn(c, scale=0.3) + 1.0, randn(c, scale=0.3), 1e-5, pe,
+                37)
+        want = FF.ln_rows_plain(*args)
+        plans = {FF.ln_rows_plan(999, c, sms, short_runs=0),
+                 FF.ln_rows_plan(999, c, sms)}
+        for plan in sorted(plans):
+            check_close(f"ln_rows_cuda R=999 K={c} +pe {plan}",
+                        FF.ln_rows_cuda(*args, plan=plan), want,
+                        float(want.float().abs().max()) / 64, 0.0, why)
     x = randn(48 * 6272, 320, scale=2.0) + 0.3
     args = (x, randn(320, scale=0.3) + 1.0, randn(320, scale=0.3), 1e-5)
     bit_equal("ln_rows R=301056 K=320", lambda: FF.ln_rows(*args))

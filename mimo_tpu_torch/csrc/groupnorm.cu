@@ -7,15 +7,36 @@
 //
 // What bounds it on an H100: no matrix product and ~10 fp32 operations an
 // element, so HBM bytes (3.35 TB/s). The least it must move is one read and
-// one write of x. The statistics of a batch row n need all of its S rows
-// before any row can be normalised, so x is read twice: once for the
-// statistics, once to normalise.
+// one write of x. The statistics of a (batch row n, group) need all of its
+// S rows before any row can be normalised, so x is read once only where
+// those rows stay on chip until the statistics are known. Two tiers, one
+// launch a call each; ops/groupnorm.py::gn_plan picks:
 //
-// One launch a call: a cooperative grid of two blocks an SM (co-resident,
-// so blocks may wait for each other), cut into one team a batch row, all
-// batch rows at once (`teams` = N while N <= the grid; beyond, a team walks
-// n = t, t + teams, ...). A team's blocks split the row's S rows (`rows`
-// each). Per n, a block:
+// RESIDENT (gn_resident_kernel), where the slice of a batch row and a chunk
+// of whole groups fits the shared memory of a cluster of <= 8 blocks of
+// <= 48 KB each (UNet levels 1-3: a slice of 33-376 KB), or else of <= 16
+// blocks of <= 64 KB (a cluster size the card grants on request: UNet
+// level 0 at C = 320 / 640 and the VAE's 64x98 frames, a slice of 0.8-1
+// MB). Block b of a cluster copies rows b * rows ... of its (n, chunk)
+// slice into shared memory (cp.async, every copy of the block in flight at
+// once), sums them, and the cluster adds its blocks' group partials in rank
+// order through distributed shared memory; each block then normalises its
+// rows from shared memory. x is read from HBM once. The chunk is the
+// fewest whole groups whose width is a multiple of 8 channels and >= 128
+// bytes a row, so a row's piece is whole 16-byte vectors and a warp's
+// loads cover whole sectors; where that chunk's rows fit one block (level
+// 3), the widest such chunk that still does. Many small independent
+// clusters of 128-thread blocks (3-5 blocks an SM) keep HBM busy while
+// others sum or wait on their cluster barrier; the clusters never wait for
+// each other.
+//
+// STREAM (gn_kernel), where the slice does not fit: UNet level 0's concat
+// width (C = 960: a 1.5 MB slice) and the VAE decoder's larger frames (25
+// MB and up). x is read twice. A cooperative grid of two blocks an SM
+// (co-resident, so blocks may wait for each other), cut into one team a
+// batch row, all batch rows at once (`teams` = N while N <= the grid;
+// beyond, a team walks n = t, t + teams, ...). A team's blocks split the
+// row's S rows (`rows` each). Per n, a block:
 //   1. sums x + row_add and its square per channel over its rows, in fp32
 //      (each thread over its rows in order, then the threads of a channel in
 //      order, then a warp per group over its channels: a fixed tree), and
@@ -32,19 +53,10 @@
 //      channels across the rows it walks) and writes y = x * mul + add
 //      (+ SiLU in fp32), one rounding at the store, 16 bytes a thread,
 //      neighbours side by side.
-// A call's tensor up to ~40 MB (UNet levels 2-3) is still in L2 (50 MB) for
-// step 3, so HBM sees it once; larger ones (levels 0-1: 48-578 MB, the
-// VAE) are read from HBM about twice.
-//
-// Why no tier that keeps a batch row in shared memory (as the TPU kernel
-// kept it in VMEM): a team of co-resident blocks can hold ~25 MB, so level
-// 0's and level 1's 48-frame tensors (96-578 MB) take 4-24 rounds of the
-// grid, and each round pays the team barrier with the whole card in step
-// (the loads land over several microseconds, the slowest block sets the
-// pace, HBM idles meanwhile). Built and measured on the card, that tier
-// lost to this one at every main-path shape, levels 2-3 included, where
-// L2 already holds the tensor between the two reads.
+// The resident tier also folds the coefficients this way, and both keep
+// every sum in a fixed order.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -411,6 +423,182 @@ cudaError_t launch(GnArgs a, cudaStream_t stream) {
                                      args, smem, stream);
 }
 
+// ---- the resident tier --------------------------------------------------
+
+struct GnResArgs {
+  const void* x;
+  const float* radd;     // (N, C) or null
+  const float* scale;    // (C,)
+  const float* bias;     // (C,)
+  void* y;
+  int S, C, G;
+  float eps;
+  int silu;
+  int cw;                // channels of a chunk (whole groups, % 8 == 0)
+  int rows;              // rows a block (the last block of a cluster: fewer)
+  int tx, ty;            // threads across the chunk (cw / 8), thread rows
+};
+
+// dynamic shared memory: [slice: rows x cw T] [scratch: ty x 2cw fp32]
+// [partials: 2 x groups of the chunk, fp32]
+__host__ __device__ __forceinline__ size_t res_smem_bytes(const GnResArgs& a,
+                                                          int elem) {
+  return align16((size_t)a.rows * a.cw * elem) + (size_t)a.ty * 2 * a.cw * 4 +
+         align16((size_t)2 * (a.cw / (a.C / a.G)) * 4);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// A cluster of gridDim.x blocks takes the (n = blockIdx.z, chunk =
+// blockIdx.y) slice; block b of it rows b * rows ... Every sum in a fixed
+// order: a thread over its rows in order, the thread rows of a channel in
+// order, a warp per (sum | square, group) over the group's channels, then
+// every block of the cluster over the blocks' partials in rank order (each
+// block computes the same totals).
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads) gn_resident_kernel(
+    const GnResArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int r0 = static_cast<int>(cluster.block_rank()) * a.rows;
+  const int rows = min(a.rows, a.S - r0);
+  const int c0 = blockIdx.y * a.cw, n = blockIdx.z;
+  const int cpg = a.C / a.G, gpc = a.cw / cpg;
+  const int tid = threadIdx.x, tx_i = tid % a.tx, ty_i = tid / a.tx;
+  const int lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const int cv = tx_i * 8;
+  // a pad thread of the last warp (ty_i >= ty) takes no rows
+  const int my_rows = ty_i < a.ty ? rows : 0;
+  T* slice = reinterpret_cast<T*>(smem);
+  float* scratch = reinterpret_cast<float*>(
+      smem + align16((size_t)a.rows * a.cw * sizeof(T)));
+  float* part = scratch + (size_t)a.ty * 2 * a.cw;
+  const size_t base = ((size_t)n * a.S + r0) * a.C + c0 + cv;
+  const T* xg = static_cast<const T*>(a.x) + base;
+  T* yg = static_cast<T*>(a.y) + base;
+  const float* radd = a.radd != nullptr ? a.radd + (size_t)n * a.C + c0 : nullptr;
+
+  // 1. the block's rows into shared memory, all copies in flight at once;
+  // a thread then reads back only what it copied itself
+  constexpr int kCopies = 8 * sizeof(T) / 16;
+  for (int r = ty_i; r < my_rows; r += a.ty) {
+#pragma unroll
+    for (int h = 0; h < kCopies; ++h)
+      cp_async16(slice + (size_t)r * a.cw + cv + h * (16 / sizeof(T)),
+                 xg + (size_t)r * a.C + h * (16 / sizeof(T)));
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // 2. this thread's per-channel sums of (x + r) and (x + r)^2
+  float rv[8], s[8], q[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    rv[e] = radd != nullptr ? radd[cv + e] : 0.f;
+    s[e] = q[e] = 0.f;
+  }
+  for (int r = ty_i; r < my_rows; r += a.ty) {
+    float f[8];
+    unpack(ld_vec(slice + (size_t)r * a.cw + cv), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float v = f[e] + rv[e];
+      s[e] += v;
+      q[e] += v * v;
+    }
+  }
+  if (ty_i < a.ty) {
+    float* sp = scratch + (size_t)ty_i * 2 * a.cw + cv;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      sp[e] = s[e];
+      sp[a.cw + e] = q[e];
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < 2 * a.cw; c += blockDim.x) {
+    float v = scratch[c];
+    for (int y = 1; y < a.ty; ++y) v += scratch[(size_t)y * 2 * a.cw + c];
+    scratch[c] = v;
+  }
+  __syncthreads();
+  for (int j = warp; j < 2 * gpc; j += warps) {
+    const float* ch = scratch + (j < gpc ? 0 : a.cw) + (j % gpc) * cpg;
+    float v = 0.f;
+    for (int c = lane; c < cpg; c += 32) v += ch[c];
+    v = warp_sum(v);
+    if (lane == 0) part[j] = v;
+  }
+
+  // 3. the cluster's totals, block by block in rank order; the scratch row
+  // 0 (no longer needed) takes them
+  cluster_arrive();
+  cluster_wait();
+  float* total = scratch;
+  for (int j = tid; j < 2 * gpc; j += blockDim.x) {
+    float v = 0.f;
+    for (int b = 0; b < k; ++b) v += cluster.map_shared_rank(part, b)[j];
+    total[j] = v;
+  }
+  cluster_arrive();  // done reading the other blocks' partials
+  __syncthreads();
+
+  // 4. y = x * mul + add (+ SiLU) from shared memory, mul / add of the
+  // thread's channels in registers
+  const float count = (float)a.S * (float)cpg;
+  float mul[8], add[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = cv + e, g = c / cpg;
+    const float mean = total[g] / count;
+    const float rstd = rsqrtf(total[gpc + g] / count - mean * mean + a.eps);
+    mul[e] = rstd * a.scale[c0 + c];
+    add[e] = a.bias[c0 + c] - mean * mul[e] + rv[e] * mul[e];
+  }
+  for (int r = ty_i; r < my_rows; r += a.ty)
+    apply8(ld_vec(slice + (size_t)r * a.cw + cv), mul, add, a.silu,
+           yg + (size_t)r * a.C);
+  cluster_wait();  // no block leaves while another may read its partials
+}
+
+template <typename T>
+cudaError_t launch_resident(const GnResArgs& a, int N, int cluster,
+                            cudaStream_t stream) {
+  const size_t smem = res_smem_bytes(a, sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      gn_resident_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(gn_resident_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, a.C / a.cw, N);
+  cfg.blockDim = dim3((a.tx * a.ty + 31) / 32 * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gn_resident_kernel<T>, a);
+}
+
 }  // namespace
 
 extern "C" {
@@ -458,6 +646,42 @@ int mimo_group_norm_fwd(const void* x, const void* radd, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dtype == 1 ? launch<__nv_bfloat16>(a, st)
                                      : launch<float>(a, st));
+}
+
+// The resident tier of the same function: clusters of `cluster` blocks of
+// `rows` rows each, one a (batch row, chunk of cw channels); ty thread rows
+// of cw / 8 threads. The plan comes from ops/groupnorm.py::gn_plan. Returns
+// a cudaError_t code.
+int mimo_group_norm_resident_fwd(const void* x, const void* radd,
+                                 const void* scale, const void* bias, void* y,
+                                 int dtype, int N, int S, int C, int G,
+                                 float eps, int silu, int cw, int cluster,
+                                 int rows, int ty, void* stream) {
+  if (N < 1 || S < 1 || C % 8 != 0 || G < 1 || C % G != 0 || cw < 8 ||
+      cw % 8 != 0 || C % cw != 0 || cw % (C / G) != 0 || ty < 1 ||
+      (cw / 8) * ty > kMaxThreads || cluster < 1 || cluster > 16 ||
+      rows < 1 || (long long)rows * (cluster - 1) >= S ||
+      (long long)rows * cluster < S || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GnResArgs a;
+  a.x = x;
+  a.radd = static_cast<const float*>(radd);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.y = y;
+  a.S = S;
+  a.C = C;
+  a.G = G;
+  a.eps = eps;
+  a.silu = silu;
+  a.cw = cw;
+  a.rows = rows;
+  a.tx = cw / 8;
+  a.ty = ty;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 1 ? launch_resident<__nv_bfloat16>(a, N, cluster, st)
+                 : launch_resident<float>(a, N, cluster, st));
 }
 
 }  // extern "C"

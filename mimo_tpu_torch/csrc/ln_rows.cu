@@ -26,8 +26,12 @@
 //   row instead of divided. The registers go to the row and its prefetch:
 //   scale and bias sit in shared memory, loaded once a block, and the row
 //   groups of a warp read the same 16-byte vectors of them (a broadcast);
-// - rows wider than 32 x 6 vectors (K > 1536, never on the main path) take
-//   ln_rows_wide_kernel: a warp a row, read twice (the second time from L1).
+// - rows wider than 32 x 6 vectors (K > 1536, never on the main path) and
+//   calls of a few row steps a warp (UNet levels 2-3: 5-19k rows, where the
+//   register kernel's two blocks an SM hold too few rows in flight and a
+//   run is too short for its prefetch) take ln_rows_wide_kernel: a warp a
+//   row, few registers, so many blocks an SM; the row is read from HBM once
+//   and again from L1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

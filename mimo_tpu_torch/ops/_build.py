@@ -46,6 +46,8 @@ _SIGNATURES = {
         [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P], _I),
     "mimo_group_norm_fwd": ([_P] * 9 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
                             _I),
+    "mimo_group_norm_resident_fwd": (
+        [_P] * 5 + [_I] * 5 + [_F] + [_I] * 5 + [_P], _I),
     "mimo_ln_rows_fwd": (
         [_P, _L, _I, _I, _P, _P, _F, _P, _I, _I, _P] + [_I] * 4 + [_P], _I),
     "mimo_gemm_fwd": (

@@ -167,6 +167,8 @@ LN_LANES = (8, 16, 32)
 LN_MAX_VECTORS = 6
 LN_WARPS = 8              # warps a block (kThreads / 32)
 LN_BLOCKS_PER_SM = 2      # its __launch_bounds__
+LN_SHORT_RUNS = 12        # runs of the grid's row steps below which a
+                          # call takes the wide-row kernel
 
 
 class LnPlan(NamedTuple):
@@ -183,20 +185,29 @@ class LnPlan(NamedTuple):
 
 
 @lru_cache(maxsize=None)
-def ln_rows_plan(m: int, k: int, sms: int) -> LnPlan:
+def ln_rows_plan(m: int, k: int, sms: int,
+                 short_runs: int = LN_SHORT_RUNS) -> LnPlan:
     """The LN row pass's plan for m rows of k values on ``sms`` SMs: the
     (lanes, vectors) that cover k/8 vectors with the fewest idle slots (then
     the most vectors a lane), and a grid two blocks an SM deep whose warps
-    take equal runs of row steps."""
+    take equal runs of row steps. A call of at most ``short_runs`` such
+    grids of steps (UNet levels 2-3), and rows past 32 × LN_MAX_VECTORS
+    vectors, take the wide-row kernel instead: a warp a row, many blocks an
+    SM, which there beats the register kernel's two blocks an SM (each row
+    read from HBM once, then again from L1)."""
     vecs = k // 8
+    wide = LnPlan(32, 0, 1, -(-m // LN_WARPS))
     if vecs > LN_LANES[-1] * LN_MAX_VECTORS:
-        return LnPlan(32, 0, 1, -(-m // LN_WARPS))
+        return wide
     lanes, vectors = min(
         ((lanes, -(-vecs // lanes)) for lanes in LN_LANES
          if -(-vecs // lanes) <= LN_MAX_VECTORS),
         key=lambda lv: (lv[0] * lv[1] - vecs, lv[0]))
     steps = -(-m // (32 // lanes))
-    per = -(-steps // min(steps, LN_BLOCKS_PER_SM * LN_WARPS * sms))
+    grid_warps = LN_BLOCKS_PER_SM * LN_WARPS * sms
+    if steps <= short_runs * grid_warps:
+        return wide
+    per = -(-steps // min(steps, grid_warps))
     warps = -(-steps // per)
     return LnPlan(lanes, vectors, per, -(-warps // LN_WARPS))
 
@@ -231,15 +242,14 @@ def _vec(t: Optional[torch.Tensor], n: int, dev) -> Optional[torch.Tensor]:
                  lambda: t.to(device=dev, dtype=torch.bfloat16).contiguous())
 
 
-def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float, pe: Optional[torch.Tensor] = None,
-            pe_div: int = 1) -> torch.Tensor:
-    """``ln_rows_plain`` of x (..., K): on the card the kernel of
-    ``csrc/ln_rows.cu`` (x bf16, rows may be strided), into a new
-    contiguous bf16 tensor of x's shape; the plain version for a CPU
-    tensor."""
-    if not x.is_cuda:
-        return ln_rows_plain(x, scale, bias, eps, pe, pe_div)
+def ln_rows_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 eps: float, pe: Optional[torch.Tensor] = None,
+                 pe_div: int = 1, plan: Optional[LnPlan] = None
+                 ) -> torch.Tensor:
+    """One launch of the kernel of ``csrc/ln_rows.cu`` on a bf16 CUDA x
+    (..., K) (rows may be strided) under ``plan`` (by default
+    ``ln_rows_plan``'s), into a new contiguous bf16 tensor of x's shape;
+    counts nothing (``ln_rows`` does)."""
     x2 = _rows(x, "x")
     r, k = x2.shape
     if k % 8 or r == 0:
@@ -252,7 +262,8 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         if pe.dim() != 2 or pe_div < 1:
             raise ValueError("ln_rows kernel: pe must be (F, K), pe_div >= 1")
         pe_c = _vec(pe, k, dev)
-    plan = ln_rows_plan(r, k, _build.sm_count(dev))
+    if plan is None:
+        plan = ln_rows_plan(r, k, _build.sm_count(dev))
     y = torch.empty((r, k), dtype=torch.bfloat16, device=dev)
     err = _build.load_library().mimo_ln_rows_fwd(
         x2.data_ptr(), x2.stride(0), r, k, scale_c.data_ptr(),
@@ -261,8 +272,19 @@ def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         pe_c.shape[0] if pe_c is not None else 1, y.data_ptr(), *plan,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ln_rows")
-    ln_rows.launches += 1
     return y.reshape(x.shape)
+
+
+def ln_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            eps: float, pe: Optional[torch.Tensor] = None,
+            pe_div: int = 1) -> torch.Tensor:
+    """``ln_rows_plain`` of x (..., K): on the card the kernel
+    (``ln_rows_cuda``, x bf16), the plain version for a CPU tensor."""
+    if not x.is_cuda:
+        return ln_rows_plain(x, scale, bias, eps, pe, pe_div)
+    y = ln_rows_cuda(x, scale, bias, eps, pe, pe_div)
+    ln_rows.launches += 1
+    return y
 
 
 def gemm(a: torch.Tensor, w, *, bias: Optional[torch.Tensor] = None,

@@ -28,8 +28,8 @@ import torch
 
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops import temporal_attention as TA
+from mimo_tpu_torch.tools.timing import PEAK_BYTES, card_line, device_ms
 
-PEAK_BYTES = 3.35e12   # HBM bytes/s of one H100 SXM (NVIDIA's data sheet)
 ROUNDS = 2             # of old, new, new, old (new alone without --against)
 # (B, F, S, C, heads): the motion modules at UNet levels 0-3 (the CFG
 # batch of 2, 24 frames), then a short window (F = 5) and the longest
@@ -53,20 +53,6 @@ def sdpa_inputs(qkv, b, f, s, heads):
     c = qkv.shape[1] // 3
     x = qkv.view(b, f, s, 3, heads, c // heads).permute(3, 0, 2, 4, 1, 5)
     return [t.reshape(b * s, heads, f, c // heads).contiguous() for t in x]
-
-
-def device_ms(fn, n: int = 20) -> float:
-    """Device time of one fn() in ms: every kernel of n calls, summed by
-    torch.profiler, over n (after one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.self_device_time_total > 0) / n / 1e3
 
 
 def build_old(src: str):
@@ -102,10 +88,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_tattn_core needs a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     old = build_old(args.against) if args.against else None
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []

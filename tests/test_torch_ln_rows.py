@@ -79,7 +79,7 @@ def test_plan_maps_lanes_to_vectors(k, lanes, vectors):
     """Lanes × vectors cover the row's K/8 vectors with the fewest idle
     slots the kernel's instantiations allow: none at the main path's
     widths; rows past 32 × 6 vectors take the wide-row kernel."""
-    plan = FF.ln_rows_plan(1000, k, 132)
+    plan = FF.ln_rows_plan(48 * 6272, k, 132)
     assert (plan.lanes, plan.vectors) == (lanes, vectors)
     if vectors:
         assert plan.vectors <= FF.LN_MAX_VECTORS
@@ -94,14 +94,20 @@ def test_plan_maps_lanes_to_vectors(k, lanes, vectors):
                                  (1000, 232), (7, 320)])
 def test_plan_covers_every_row_once(m, k):
     """The warps' runs of row steps cover every row once, two blocks an
-    SM at most."""
+    SM at most; a short call (UNet levels 2-3, at most LN_SHORT_RUNS runs
+    of the grid) takes the wide-row kernel, a warp a row."""
     plan = FF.ln_rows_plan(m, k, 132)
     rows_per_step = 32 // plan.lanes
     steps = -(-m // rows_per_step)
     warps = plan.blocks * FF.LN_WARPS
     assert warps * plan.steps_per_warp >= steps
     assert (plan.blocks - 1) * FF.LN_WARPS * plan.steps_per_warp < steps
-    assert plan.blocks <= FF.LN_BLOCKS_PER_SM * 132
+    short = m <= 48 * 400 or m in (1000, 7)
+    assert (plan.vectors == 0) == short
+    if short:
+        assert (plan.lanes, plan.steps_per_warp) == (32, 1)
+    else:
+        assert plan.blocks <= FF.LN_BLOCKS_PER_SM * 132
 
 
 def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -109,13 +115,14 @@ def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def ln_rows_emulated(x, scale, bias, eps, pe=None, pe_div=1, sms=1):
-    """What csrc/ln_rows.cu computes for x (m, k) under ln_rows_plan: lane
+    """What csrc/ln_rows.cu's register kernel computes for x (m, k) under
+    ln_rows_plan (never the wide-row plan of a short call): lane
     l of a row sums its vectors l, l + lanes, ... element by element, the
     row's lanes combine in a butterfly, mean = sum · (1/k); the value is
     rounded to x's dtype, then the PE row of the frame the warp steps to
     (not divides for) is added and rounded again."""
     m, k = x.shape
-    plan = FF.ln_rows_plan(m, k, sms)
+    plan = FF.ln_rows_plan(m, k, sms, short_runs=0)
     lanes, vectors = plan.lanes, plan.vectors
     assert vectors > 0
     rows_per_step = 32 // lanes
@@ -161,6 +168,53 @@ def ln_rows_emulated(x, scale, bias, eps, pe=None, pe_div=1, sms=1):
                     frame = (frame + 1) % pe.shape[0]
     assert (frames >= 0).all()
     return (y + pe.float()[frames]).to(x.dtype)
+
+
+def ln_rows_wide_emulated(x, scale, bias, eps, pe=None, pe_div=1):
+    """What csrc/ln_rows.cu's wide-row kernel computes for x (m, k): lane
+    l of a row's warp sums its 8-value pieces l, l + 32, ... element by
+    element, the warp combines them in a butterfly, mean = sum · (1/k);
+    the value is rounded to x's dtype, then the PE row of the frame
+    (r // pe_div) % F is added and rounded again."""
+    m, k = x.shape
+    pieces = -(-k // 256)
+    xf = torch.nn.functional.pad(x.float(), (0, pieces * 256 - k))
+    v = xf.reshape(m, pieces, 32, 8)
+    s1 = torch.zeros(m, 32)
+    s2 = torch.zeros(m, 32)
+    for i in range(pieces):
+        for e in range(8):
+            s1 = s1 + v[:, i, :, e]
+            s2 = s2 + v[:, i, :, e] * v[:, i, :, e]
+    idx = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        s1, s2 = s1 + s1[:, idx ^ o], s2 + s2[:, idx ^ o]
+    inv_k = torch.tensor(1.0 / k, dtype=torch.float32)
+    mean = s1[:, 0] * inv_k
+    inv = torch.rsqrt(s2[:, 0] * inv_k - mean * mean + eps)
+    y = _rounded((x.float() - mean[:, None]) * inv[:, None] * scale.float()
+                 + bias.float(), x.dtype)
+    if pe is None:
+        return y.to(x.dtype)
+    frames = (torch.arange(m) // pe_div) % pe.shape[0]
+    return (y + pe.float()[frames]).to(x.dtype)
+
+
+@pytest.mark.parametrize("k", WIDTHS + [2048])
+def test_emulated_wide_rows_match_plain(k):
+    """The wide-row kernel (UNet levels 2-3 and K > 1536), with and
+    without the PE."""
+    x, scale, bias, pe = _inputs(k, b=2, f=4, s=37, seed=2)
+    s = x.shape[2]
+    x2 = _bt(x.reshape(-1, k))
+    got = ln_rows_wide_emulated(x2, _bt(scale), _bt(bias), 1e-5, _bt(pe), s)
+    want = FF.ln_rows_plain(x2, _bt(scale), _bt(bias), 1e-5, _bt(pe), s)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    got = ln_rows_wide_emulated(x2, _bt(scale), _bt(bias), 1e-5)
+    want = FF.ln_rows_plain(x2, _bt(scale), _bt(bias), 1e-5)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
 
 
 @pytest.mark.parametrize("k", WIDTHS)
