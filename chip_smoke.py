@@ -6,10 +6,11 @@ Phases, in order; any failure exits non-zero:
 
 1. device: fails without CUDA; prints the card's name and power limit and
    the torch / CUDA / triton / nvcc versions;
-2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc and
-   prints ptxas's registers and spills; fails if the GEMM tile core, any
-   flash, temporal-core, GroupNorm or LN-row instantiation spills, or
-   ptxas ignored a setmaxnreg;
+2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc,
+   prints the build's wall time and ptxas's registers and spills (the 36
+   flash ablation builds summed up at the end); fails if the GEMM tile
+   core, any production flash, temporal-core, GroupNorm or LN-row
+   instantiation spills, or ptxas ignored a setmaxnreg;
 3. kernels: each kernel wrapper (the function the main path calls; one
    call must count one launch) against its plain PyTorch version on the
    card at the main path's shapes (ragged edges included), max error beside
@@ -23,19 +24,18 @@ Phases, in order; any failure exits non-zero:
    the VAE's shapes (twice in each of its two tiers, which must give equal
    bits), and the LN row pass (``ln_rows``) at levels 0-3, and both of
    its kernels at K = 64 / 136 / 232 / 1280 / 2048 (twice at level 0,
-   equal bits); the flash kernel also at the full main-path batch beside
-   the ablation tool's ``full`` build (the first, mma.sync design), and
-   beside SDPA in interleaved rounds; the temporal attention chain at UNet
+   equal bits); the flash kernel also at the full main-path batch, beside
+   SDPA in interleaved rounds; the temporal attention chain at UNet
    levels 0-3, and its core alone at those levels
    and at F = 5 and 32 (beside SDPA on (B·S, H, F, d) copies);
-4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``): every
-   mode, in both K/V layouts, against its plain version at UNet levels 0
-   and 1 and a ragged shape; ``full`` (the first design) and the
-   production flash kernel both within the attention tolerance of
-   ``attention_plain``; each stand-in mode's output moves with an input it
-   keeps; then
-   the tool's own run (every mode timed at B=24, Sq=6272, Sk=12544, d=40)
-   with its launch count read just after;
+4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``, the
+   production kernel's body at each mode): ``full`` equal in every bit to
+   the production kernel (``flash_attention_nt``) at UNet levels 0 and 1
+   and a ragged shape; there every mode, in both layouts, against its
+   plain version; each stand-in mode's output moves with an input it
+   keeps; then the tool's own run (every mode in both layouts timed at
+   B=24, Sq=6272, Sk=12544, d=40, beside its bound and SDPA) with its
+   launch count read just after;
 5. main path: a small-input agreement check (card, bf16 + kernels, against
    the CPU fp32 plain path), then a full-width MIMOConfig() generation of a
    24-frame 512x784 clip with CFG through ``entry.animate.animate``, twice
@@ -62,6 +62,7 @@ are random, drawn from a seeded torch.Generator.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -70,25 +71,13 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from mimo_tpu_torch.tools.timing import (PEAK_BF16, PEAK_FP32,  # noqa: E402
+                                         SFU_PER_CLOCK, bound, exp2_ms,
+                                         flash_work, sm_clock)
+
 STEPS = 4            # DDIM steps of the full-width run
 FRAMES, HEIGHT, WIDTH = 24, 512, 784
-# published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
-PEAK_BF16 = 989e12   # tensor-core FLOP/s in bf16
-PEAK_FP32 = 67e12    # fp32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12  # HBM bytes/s
-# per SM and clock on sm_90 (CUDA C++ guide, arithmetic-instruction
-# throughput table): exp2 results of the special-function unit (MUFU) and
-# fp32 operations of the FMA pipes
-SFU_PER_CLOCK, FMA_PER_CLOCK = 16, 128
-# FMA-pipe operations each logit costs beside its exp2 (the FFMA of the
-# folded scale, the add into the row sum), and the fewest an exp2 costs
-# there instead of on the MUFU: floor, fraction, two FFMAs of a degree-2
-# polynomial (relative error 1.8e-3, under bf16's half ulp of 2^-9, so
-# enough for P); the exponent's integer add runs on another pipe
-FMA_PER_LOGIT, FMA_PER_EXP2 = 2, 4
-# SM clocks a second over the card: its SM count x its maximum SM clock,
-# read in phase 1
-SM_CLOCKS = [0.0]
 FLASH_ROUNDS = 5     # interleaved kernel / SDPA rounds of phase 3
 
 
@@ -107,27 +96,6 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def exp2_ms(logits: float) -> float:
-    """The least time for the exp2 of ``logits`` logits and the FMA-pipe
-    work each logit needs anyway: x of the exp2s on the MUFU, the rest as
-    polynomials on the FMA pipes, x chosen so both finish together."""
-    work = logits * (FMA_PER_LOGIT + FMA_PER_EXP2)
-    rate = (FMA_PER_CLOCK + FMA_PER_EXP2 * SFU_PER_CLOCK) * SM_CLOCKS[0]
-    return work / rate * 1e3
-
-
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16,
-          logits: float = 0.0):
-    """(ms, "bytes" or "operations", what): the least time the card could
-    take to move nbytes and to do flops at ``peak`` and the exp2 of
-    ``logits`` logits, whichever is larger; what names the term that
-    decides ("bytes", "flops" or "exp2")."""
-    times = {"bytes": nbytes / PEAK_BYTES * 1e3, "flops": flops / peak * 1e3,
-             "exp2": exp2_ms(logits)}
-    what = max(times, key=times.get)
-    return times[what], "bytes" if what == "bytes" else "operations", what
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -168,16 +136,10 @@ def phase_device() -> str:
     log(f"python {sys.version.split()[0]} | torch {torch.__version__} | "
         f"cuda {torch.version.cuda} | triton {triton_v} | nvcc "
         f"{nvcc.stdout.strip().splitlines()[-1]}")
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True)
-    mhz = float(clock.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    SM_CLOCKS[0] = sms * mhz * 1e6
+    sms, mhz = sm_clock()
     log(f"{sms} SMs x {mhz:.0f} MHz (max SM clock): exp2 bound "
         f"{exp2_ms(1e9) * 1e-3:.4g} s per 1e9 logits (MUFU alone "
-        f"{1e9 / (SFU_PER_CLOCK * SM_CLOCKS[0]):.4g} s)")
+        f"{1e9 / (SFU_PER_CLOCK * sms * mhz * 1e6):.4g} s)")
     return torch.cuda.get_device_name(0)
 
 
@@ -191,9 +153,12 @@ def phase_build() -> None:
         f"{'built in %.1f s' % secs if secs is not None else 'cached'} "
         f"(load {time.perf_counter() - t0:.1f} s)")
     # ptxas -v: registers and spills of each kernel (mangled names), and
-    # any warning (C7508: setmaxnreg ignored)
+    # any warning (C7508: setmaxnreg ignored); the ablation builds'
+    # (flash_ablate_kernel<d, mode, pretransposed>) are summed up after
+    from mimo_tpu_torch.tools.ablate_flash import MODES
     name = None
     bad = []
+    ablation = []
     for line in _build.build_log().splitlines():
         if "warning" in line:
             log(f"  {line.strip()}")
@@ -205,7 +170,15 @@ def phase_build() -> None:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name:
             regs = line.split("Used")[1].split(",")[0].strip()
-            log(f"  ptxas {name}: {regs}; {spills}")
+            inst = re.search(r"flash_ablate_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                             name)
+            if inst:
+                d, mode, pre = inst.groups()
+                ablation.append(f"d={d} {MODES[int(mode)]}"
+                                f"{' pretransposed' if pre == '1' else ''}: "
+                                f"{regs}; {spills}")
+            else:
+                log(f"  ptxas {name}: {regs}; {spills}")
             if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
                                         "tattn_kernel", "gn_kernel",
                                         "gn_resident_kernel",
@@ -214,6 +187,10 @@ def phase_build() -> None:
                     and not spills.startswith("0 bytes"):
                 bad.append(f"{name}: {spills}")
             name = None
+    log(f"  flash ablation builds ({len(ablation)}; a spill there counts in "
+        f"full - mode):")
+    for line in sorted(ablation, key=lambda x: (int(x[2:4]), x)):
+        log(f"    {line}")
     if bad:
         raise AssertionError(f"kernel build: {bad}")
 
@@ -248,16 +225,6 @@ def kernel_entry(name, source, replaces, label, err, run, plain, work,
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 library=lib_what)
-
-
-def flash_work(b, heads, d, sq, sk, n_in, products=2, exp2=True):
-    """FLOPs, bytes, peak and the logits whose exp2 is taken, of attention:
-    ``products`` of the two (Q.K^T, P.V) at 2 FLOP a multiply-add; n_in
-    input elements and the output, bf16; one exp2 a logit (none for the
-    ablation modes that drop it)."""
-    logits = b * heads * sq * sk
-    return (products * 2 * logits * d, 2 * (n_in + b * sq * heads * d),
-            PEAK_BF16, logits if exp2 else 0)
 
 
 def median_range(xs, fmt="%.3f", scale=1.0):
@@ -295,7 +262,6 @@ def phase_kernels():
     from mimo_tpu_torch.ops import flash_attention as FA
     from mimo_tpu_torch.ops import groupnorm as GN
     from mimo_tpu_torch.ops import temporal_attention as TA
-    from mimo_tpu_torch.tools import ablate_flash as AB
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
@@ -359,8 +325,7 @@ def phase_kernels():
     # the kernel against SDPA on the same inputs, at UNet levels 0 and 1 on
     # the 2-row subset and at the full main-path batch (the uncond/cond
     # half), timed in turns over FLASH_ROUNDS rounds: median and range of
-    # each and of the kernel's excess over SDPA a round; at B=24 also the
-    # first design (the ablation tool's ``full``, the bank concatenated)
+    # each and of the kernel's excess over SDPA a round
     for wrapper, d, s in ((FA.flash_attention_nt, 40, 6272),
                           (FA.flash_attention_nt_bank, 40, 6272),
                           (FA.flash_attention_nt, 80, 1568),
@@ -374,18 +339,13 @@ def phase_kernels():
                        cuda_ms(sdpa, 10)) for _ in range(FLASH_ROUNDS)]
             ms, sdpa_ms = (sorted(t) for t in zip(*rounds))
             excess = sorted(a / c - 1 for a, c in rounds)
-            old = ""
-            if b == 24:
-                kc, vc = concat_bank(k, v, bank)
-                old = (f", first design "
-                       f"{cuda_ms(lambda: AB.run(q, kc, vc, 8), 10):.3f} ms")
             sk = s + (s if bank else 0)
             n_in = sum(t.numel() for t in (q, k, v, *bank))
             bound_ms, _, what = bound(*flash_work(b, 8, d, s, sk, n_in))
             log(f"  {wrapper.__name__} d={d} B={b} S={s}, {FLASH_ROUNDS} "
                 f"rounds, median (min-max): kernel {median_range(ms)} ms, "
                 f"SDPA {median_range(sdpa_ms)} ms, kernel/SDPA - 1 "
-                f"{median_range(excess, '%+.1f%%', 100)}{old}; bound "
+                f"{median_range(excess, '%+.1f%%', 100)}; bound "
                 f"{bound_ms:.3f} ms by {what} ({bound_ms / ms[len(ms) // 2]:.0%}"
                 f" of the median)")
 
@@ -772,16 +732,17 @@ def phase_ablation():
         q = randn(b, sq, heads * d, scale=2.0)
         k = randn(b, sk, heads * d, scale=2.0)
         v = randn(b, sk, heads * d)
-        # `full` is the first (mma.sync) design, no longer the production
-        # kernel: both are held to the plain version
+        # `full` is the production instantiation of the shared body: the
+        # same bits as the production kernel on the same inputs
         full = call_wrapper(AB.run, q, k, v, heads, "full")
         prod = FA.flash_attention_nt(q, k, v, heads)
         torch.cuda.synchronize()
-        want = FA.attention_plain(q, k, v, heads)
-        for what, got in (("run(mode='full')", full),
-                          ("flash_attention_nt", prod)):
-            check_close(f"{what} d={d} B={b} Sq={sq} Sk={sk}", got, want,
-                        *attn)
+        same = torch.equal(full, prod)
+        log(f"  run(mode='full') d={d} B={b} Sq={sq} Sk={sk} vs "
+            f"flash_attention_nt: {'equal in every bit' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("ablate_flash full differs from the "
+                                 "production flash kernel")
         for pre in (False, True):
             lay = AB.pretranspose if pre else (lambda x: x)
             args = tuple(lay(x) for x in (q, k, v))
@@ -812,9 +773,7 @@ def phase_ablation():
                         raise AssertionError(f"{label}: output does not "
                                              f"depend on a kept input")
                 if (d, sq) == (40, 6272):
-                    # the products the mode keeps; SDPA computes `full`
-                    products = 2 - (mode in ("nopv", "noqk")) \
-                        - 2 * (mode == "nomxu")
+                    # SDPA computes `full`
                     library = (sdpa_call(q, k, v, heads)
                                if mode == "full" and not pre else
                                ("no single call: an ablation stand-in",
@@ -823,10 +782,7 @@ def phase_ablation():
                         name, src, "tools/ablate_flash.py:210", label, err,
                         lambda: AB.run(*args, heads, mode, pre),
                         lambda: AB.run_plain(*args, heads, mode, pre),
-                        flash_work(b, heads, d, sq, sk, q.numel()
-                                   + k.numel() + v.numel(), products,
-                                   exp2=mode not in ("noexp", "nosm")),
-                        library))
+                        AB.mode_work(mode, b, heads, d, sq, sk), library))
 
     log("  the tool's run: python -m mimo_tpu_torch.tools.ablate_flash")
     AB.run.launches = 0
@@ -1115,7 +1071,6 @@ def _leaves(tree):
 
 
 def main() -> None:
-    sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = phase_device()

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) helpers shared by the kernels on mbarrier rings
-// (gemm.cu, flash_attention.cu, temporal_attention.cu): shared-memory
+// (gemm.cu, flash_body.cuh, temporal_attention.cu): shared-memory
 // addresses, mbarriers, TMA tensor and bulk copies, wgmma descriptors,
 // fences and products, and cuTensorMapEncodeTiled fetched through the
 // runtime.
@@ -235,10 +235,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                  MIMO_WG_R##N "}, " DESCS ", p, 1, 1, 0, 0;\n}\n"          \
                  : MIMO_WG_D##N : "l"(da), "l"(db), "r"(scale_d));          \
   }
+MIMO_WGMMA_SS(32, "%16, %17", "%18")
 MIMO_WGMMA_SS(64, "%32, %33", "%34")
 MIMO_WGMMA_SS(128, "%64, %65", "%66")
 MIMO_WGMMA_SS(160, "%80, %81", "%82")
 #undef MIMO_WGMMA_SS
+
+// The same with both operands MN-major (the transpose bits): A (64 x 16) as
+// 16 K rows of 64 M values, B (16 x N) as 16 K rows of N values
+// (descriptors from smem_desc_mn).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d);
+
+#define MIMO_WGMMA_SS_T(N, DESCS, SCALE)                                    \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_ss_t<N>(                            \
+      float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {           \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"         \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                 MIMO_WG_R##N "}, " DESCS ", p, 1, 1, 1, 1;\n}\n"          \
+                 : MIMO_WG_D##N : "l"(da), "l"(db), "r"(scale_d));          \
+  }
+MIMO_WGMMA_SS_T(32, "%16, %17", "%18")
+MIMO_WGMMA_SS_T(64, "%32, %33", "%34")
+MIMO_WGMMA_SS_T(128, "%64, %65", "%66")
+#undef MIMO_WGMMA_SS_T
 
 // D (64 x N, fp32) += A (64 x 16, bf16 from registers: each warp's 16 rows
 // in the m16n8k16 A-fragment layout) . B (16 x N) from shared memory,
@@ -264,6 +286,26 @@ MIMO_WGMMA_RS(72) MIMO_WGMMA_RS(80) MIMO_WGMMA_RS(88) MIMO_WGMMA_RS(96)
 MIMO_WGMMA_RS(104) MIMO_WGMMA_RS(112) MIMO_WGMMA_RS(120) MIMO_WGMMA_RS(128)
 MIMO_WGMMA_RS(136) MIMO_WGMMA_RS(144) MIMO_WGMMA_RS(152) MIMO_WGMMA_RS(160)
 #undef MIMO_WGMMA_RS
+
+// The same with B K-major (no transpose bit): N rows of 16 K values
+// (descriptor from smem_desc)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2],
+                                           const uint32_t (&a)[4], uint64_t db);
+
+#define MIMO_WGMMA_RS_K(N)                                                  \
+  template <>                                                               \
+  __device__ __forceinline__ void wgmma_rs_k<N>(                            \
+      float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {             \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " MIMO_WG_S##N ", 0;\n"  \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                 MIMO_WG_R##N "}, " MIMO_WG_A##N ", p, 1, 1, 0;\n}\n"       \
+                 : MIMO_WG_D##N                                             \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                   "r"(1));                                                 \
+  }
+MIMO_WGMMA_RS_K(40) MIMO_WGMMA_RS_K(80)
+#undef MIMO_WGMMA_RS_K
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,

@@ -67,7 +67,8 @@ def main(argv=None):
     ap.add_argument("--template", required=True)
     ap.add_argument("--output", required=True)
     ap.add_argument("--weights", default=None,
-                    help=".npz bundle from mimo_tpu/weights/convert.py "
+                    help=".npz bundle from `python -m "
+                         "mimo_tpu_torch.weights.convert` "
                          "(random init if omitted — smoke-test mode)")
     ap.add_argument("--W", type=int, default=784)
     ap.add_argument("--H", type=int, default=784)

@@ -39,7 +39,7 @@ def init_random_params(cfg: MIMOConfig, generator: torch.Generator,
 
 def load_params(path: str, device="cuda",
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
-    """Load a converted .npz weight bundle (mimo_tpu/weights/convert.py)
+    """Load a converted .npz weight bundle (weights/convert.py)
     onto ``device``: the card unless the caller asks for the CPU."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("load_params: no CUDA device; pass device='cpu' "

@@ -2,31 +2,34 @@
 banked shape (B=24, Sq=6272, Sk=12544 = self + bank, 8 heads, d=40).
 
 Counterpart of ``tools/ablate_flash.py``. Each mode is a build of the
-first design of the flash kernel (``csrc/flash_ablate.cuh``: mma.sync,
-cp.async double buffering) with one piece of its work removed at compile
-time (``csrc/flash_ablate.cu`` states each mode's meaning on Hopper);
-``full - mode`` attributes that design's time to the piece. The production
-kernel (``csrc/flash_attention.cu``, wgmma + TMA) is no longer this body.
-The numbers are not an exact decomposition (a removed piece frees issue
-slots and bandwidth for its neighbours) but rank the targets.
+production flash kernel's own body (``csrc/flash_body.cuh``: wgmma + TMA,
+a producer and two consumer warpgroups on an mbarrier ring) with one piece
+of its work removed at compile time (``csrc/flash_ablate.cu`` and
+``flash_body.cuh`` state each mode exactly); ``full - mode`` attributes the
+production kernel's time to the piece. The numbers are not an exact
+decomposition (a removed piece frees issue slots for its neighbours) but
+rank the targets.
 
-  full      the first design's math, unchanged (attention; within the
-            attention tolerance of ops.flash_attention's kernel, no longer
-            bit-equal to it)
-  noexp     no exp2 per logit             -> full - noexp   = exp2 cost
+  full      the production kernel (bit-equal to ops.flash_attention's
+            flash_attention_nt on the same inputs)
+  noexp     no MUFU exp2 per logit        -> full - noexp   = exp2 cost
   nosm      no scale/mask/max/exp2        -> full - nosm    = softmax cost
-  nopv      no P.V mma                    -> full - nopv    = PV cost
+  nopv      no P.V wgmma                  -> full - nopv    = PV cost
   noqk      rank-1 stand-in for Q.K^T     -> full - noqk    = QK cost
   nomxu     noqk + nopv                   -> full - nomxu   = tensor-core cost
   noshift   fixed shift, no running max   -> full - noshift = shift-chain cost
-  chunk2/4  sub-chunked QK/softmax/PV     -> full - chunk*  = interleave gain
-  full, pretransposed (q, k, v as (B, H*d, S))
-                                          -> transpose cost
+  chunk2/4  Q.K^T in 2 / 4 wgmma groups, the softmax of a sub-chunk while
+            the later ones run            -> full - chunk*  = overlap gain
+  every mode pretransposed (q, k, v as (B, H*d, S); Q, K read MN-major, V
+  K-major, by the wgmma descriptors' transpose bits)
+                                          -> mode - mode pretransposed
+                                             = transpose cost
 
 ``run`` takes the kernel for CUDA tensors (or raises) and ``run_plain``,
 the plain PyTorch version of every mode, for CPU tensors. The TPU tool's
-block arguments do not carry over: the Hopper tiles are compile-time
-constants (128 queries x 64 keys).
+block arguments do not carry over: the Hopper tiles are the production
+kernel's compile-time constants (128 queries x ``BLOCK_K`` = 128 keys at
+d = 40 and 80).
 
 Usage (on a CUDA card): python -m mimo_tpu_torch.tools.ablate_flash
 """
@@ -34,7 +37,6 @@ Usage (on a CUDA card): python -m mimo_tpu_torch.tools.ablate_flash
 from __future__ import annotations
 
 import math
-import subprocess
 from typing import Dict
 
 import torch
@@ -42,14 +44,34 @@ import torch
 from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops.flash_attention import (LOG2E, _check_operand,
                                                 attention_plain)
+from mimo_tpu_torch.tools.timing import bound, card_line, flash_work
 
-# the C interface's mode numbers (csrc/flash_ablate.cuh FlashMode)
+# the C interface's mode numbers (csrc/flash_body.cuh FlashMode)
 MODES = ("full", "noexp", "nosm", "nopv", "noqk", "nomxu", "noshift",
          "chunk2", "chunk4")
 # modes whose output is attention (the others are bounded stand-ins)
 ATTENTION_MODES = ("full", "noshift", "chunk2", "chunk4")
 KERNEL_DIMS = (40, 80)
-BLOCK_K = 64          # keys per tile of the kernel (the stand-ins' state)
+# keys a tile of the kernel at both widths (FlashTile<D>::kBK): the
+# stand-ins' per-tile state
+BLOCK_K = 128
+
+
+def nopv_key(cols: torch.Tensor) -> torch.Tensor:
+    """For each output column c, the key of a tile whose p that column
+    adds in nopv / nomxu: o register 4i + 2h + e of a thread (column
+    8i + 2t + e) adds s register 4i + 2h + e of the same thread (key
+    8i + 2t + e of the same row), so key c."""
+    return cols % BLOCK_K
+
+
+def mode_work(mode: str, b: int, heads: int, d: int, sq: int, sk: int):
+    """``flash_work`` of a mode: the products it keeps (nopv and noqk drop
+    one, nomxu both) and one exp2 a logit unless it drops them (noexp,
+    nosm); q, k, v read once, o written once."""
+    products = 2 - (mode in ("nopv", "noqk")) - 2 * (mode == "nomxu")
+    return flash_work(b, heads, d, sq, sk, b * (sq + 2 * sk) * heads * d,
+                      products, exp2=mode not in ("noexp", "nosm"))
 
 
 def _check_mode(mode: str) -> None:
@@ -67,8 +89,8 @@ def run_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
               mode: str = "full", pretransposed: bool = False) -> torch.Tensor:
     """The plain PyTorch version of every mode, in fp32, result (B, Sq, H*d)
     in q's dtype. The attention modes are ``attention_plain``; the others
-    keep the kernel's per-tile state, so they loop over its 64-key tiles and
-    round P to bf16 where the kernel feeds it to an mma."""
+    keep the kernel's per-tile state, so they loop over its ``BLOCK_K``-key
+    tiles and round P to bf16 where the kernel feeds it to a wgmma."""
     _check_mode(mode)
     if pretransposed:
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
@@ -79,9 +101,7 @@ def run_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
     qh, kh, vh = (_heads_first(x, heads) for x in (q, k, v))
     rank1 = mode in ("noqk", "nomxu")
     pick = mode in ("nopv", "nomxu")
-    # nopv's column c of acc sums P of key (c // 8 % 8) * 8 + c % 8 of a tile
-    cols = torch.arange(d, device=q.device)
-    pick_key = (cols // 8 % 8) * 8 + cols % 8
+    pick_key = nopv_key(torch.arange(d, device=q.device))
     scale = LOG2E / math.sqrt(d)
     m = torch.full((b, heads, sq, 1), -math.inf, device=q.device)
     l = torch.zeros((b, heads, sq, 1), device=q.device)
@@ -185,39 +205,49 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def main() -> Dict[str, float]:
-    """Times every mode at the level-0 banked shape and prints the per-mode
-    ms and the attribution ``full - mode``. Returns {label: ms}."""
+    """Times every mode in both layouts at the level-0 banked shape, and
+    SDPA on the same inputs; prints each mode's ms beside its bound
+    (``mode_work``) and the attribution ``full - mode`` and ``mode - mode
+    pretransposed``. Returns {label: ms}."""
     if not torch.cuda.is_available():
         raise RuntimeError("ablate_flash needs a CUDA device "
                            "(torch.cuda.is_available() is False)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    import torch.nn.functional as F
+    print(card_line(), flush=True)
     # level-0 cond equivalent: the self + bank keys of the banked call,
     # C=320, 8 heads (d=40)
     b, sq, sk, c, heads = 24, 6272, 12544, 320, 8
+    d = c // heads
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn((b, s, c), generator=gen, device=dev,
                            dtype=torch.bfloat16) for s in (sq, sk, sk))
     qt, kt, vt = (pretranspose(x) for x in (q, k, v))
-    flops = 4 * b * heads * sq * sk * (c // heads)
     times = {}
-    for mode in MODES:
-        times[mode] = cuda_ms(lambda: run(q, k, v, heads, mode))
-        print(f"lvl0cond {mode:14s}: {times[mode]:8.3f} ms/call", flush=True)
-    times["pretransposed"] = cuda_ms(
-        lambda: run(qt, kt, vt, heads, "full", pretransposed=True))
-    print(f"lvl0cond {'pretransposed':14s}: {times['pretransposed']:8.3f} "
-          f"ms/call", flush=True)
+    for pre in (False, True):
+        args = (qt, kt, vt) if pre else (q, k, v)
+        for mode in MODES:
+            label = mode + (" pretransposed" if pre else "")
+            times[label] = ms = cuda_ms(lambda: run(*args, heads, mode, pre))
+            bound_ms, _, what = bound(*mode_work(mode, b, heads, d, sq, sk))
+            print(f"lvl0cond {label:21s}: {ms:8.3f} ms/call (bound "
+                  f"{bound_ms:.3f} ms by {what}, {bound_ms / ms:.0%} of it)",
+                  flush=True)
+    qh, kh, vh = (x.unflatten(-1, (heads, d)).transpose(1, 2)
+                  for x in (q, k, v))
+    times["sdpa"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     f = times["full"]
-    print(f"\nfull: {flops / (f * 1e-3) / 1e12:.1f} TFLOP/s at the unpadded d")
+    print(f"SDPA on the same inputs: {times['sdpa']:.3f} ms/call "
+          f"(full / SDPA = {f / times['sdpa']:.3f})")
+    print(f"full: {4 * b * heads * sq * sk * d / (f * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s at the unpadded d")
     print("attribution (full - ablated):")
     for mode in MODES[1:]:
         print(f"  {mode:9s}: {f - times[mode]:+8.3f} ms")
-    print(f"  transposes (full - pretransposed): "
-          f"{f - times['pretransposed']:+8.3f} ms", flush=True)
+    print("transposes (mode - mode pretransposed):")
+    for mode in MODES:
+        print(f"  {mode:9s}: {times[mode] - times[mode + ' pretransposed']:+8.3f} ms",
+              flush=True)
     return times
 
 

@@ -1,8 +1,8 @@
 """Weights bridge: a ``mimo_tpu`` parameter tree, flattened to numpy arrays,
 becomes the port's parameter tree of torch tensors.
 
-Input is the flat format of ``mimo_tpu/weights/convert.py``
-(``flatten_tree``/``save_npz``): keys are ``/``-joined paths, list indices
+Input is the flat format of ``weights/convert.py`` (the port's copy of
+``mimo_tpu/weights/convert.py``; ``flatten_tree``/``save_npz``): keys are ``/``-joined paths, list indices
 are decimal path parts, and a ``None`` subtree is a ``<path>#none`` key.
 The same tree structure comes out, with two layout changes:
 

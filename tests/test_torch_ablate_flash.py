@@ -1,13 +1,18 @@
 """The port's flash-ablation tool (mimo_tpu_torch/tools/ablate_flash.py):
 its plain versions, as ``run`` takes them for CPU tensors, against the JAX
 tool tools/ablate_flash.py (Pallas, interpret mode) and the numpy oracle of
-tests/test_ops.py, and the stand-in modes' bounds and data dependencies.
+tests/test_ops.py, and the stand-in modes' bounds and data dependencies;
+the tool's modes, tile and nopv key pick against the kernel source
+(csrc/flash_body.cuh) and its accumulator layout.
 
 Shapes: B=1, Sq=256, Sk=512, 2 heads, d=40 (the JAX tool at block_q=128,
-block_k=256), plus ragged Sq=100 / Sk=150 for the per-tile stand-ins.
+block_k=256), plus ragged Sq=100 / Sk=150 (one whole BLOCK_K = 128-key
+tile and a ragged one) for the per-tile stand-ins.
 """
 
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -61,9 +66,7 @@ def _t(x):
 
 
 @pytest.mark.parametrize("mode,pretransposed", [
-    ("full", False), ("noshift", False), ("chunk2", False), ("chunk4", False),
-    ("full", True),
-])
+    (mode, pre) for pre in (False, True) for mode in A.ATTENTION_MODES])
 def test_attention_modes_match_jax_tool_and_oracle(jax_tool, mode,
                                                    pretransposed):
     q, k, v = _inputs(0)
@@ -180,3 +183,44 @@ def test_pretranspose_pads_the_channel_stride():
     t = A.pretranspose(x)
     assert t.shape == (2, 3, 11) and t.stride() == (48, 16, 1)
     np.testing.assert_array_equal(nn(t), nn(x.transpose(1, 2)))
+
+
+BODY = (Path(A.__file__).parents[1] / "csrc" / "flash_body.cuh").read_text()
+
+
+def test_modes_follow_the_kernel_enum():
+    """MODES is the C interface's mode order: FlashMode of the body."""
+    enum = re.search(r"enum FlashMode : int \{(.*?)\};", BODY, re.S)[1]
+    names = [n.split("=")[0].strip() for n in enum.split(",") if n.strip()]
+    assert names[-1] == "kNumModes"
+    assert [n[1:].lower() for n in names[:-1]] == list(A.MODES)
+
+
+def test_block_k_is_the_kernel_tile():
+    """The stand-ins' tile is FlashTile<D>::kBK at every kernel width."""
+    limit, small, large = map(int, re.search(
+        r"kBK = D <= (\d+) \? (\d+) : (\d+);", BODY).groups())
+    assert {small if d <= limit else large for d in A.KERNEL_DIMS} \
+        == {A.BLOCK_K}
+
+
+@pytest.mark.parametrize("d", A.KERNEL_DIMS)
+def test_nopv_picks_the_key_of_the_kernel_registers(d):
+    """In nopv the kernel adds s register j into o register j of the same
+    thread. In the m64nN accumulator layout register 4i + 2h + e of lane
+    ``lane`` of warp w is row 16w + lane/4 + 8h, column 8i + 2(lane % 4) +
+    e: column c of o adds the logit of key c of the tile, which is what
+    run_plain picks."""
+    for h, e in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        j = f"i + {2 * h + e}" if 2 * h + e else "i"
+        assert f"o[{j}] = fmaf(o[{j}], al{h}, s[{j}]);" in BODY
+    want = A.nopv_key(torch.arange(d))
+    for warp in range(4):
+        for lane in range(32):
+            for j in range(d // 2):
+                i, h, e = j // 4, (j >> 1) & 1, j & 1
+                row = 16 * warp + lane // 4 + 8 * h
+                col = 8 * i + 2 * (lane % 4) + e   # o register j
+                key = 8 * i + 2 * (lane % 4) + e   # s register j
+                assert 0 <= row < 64 and key < A.BLOCK_K
+                assert int(want[col]) == key

@@ -34,7 +34,10 @@ from tests.test_torch_helpers import nn, set_fp32_matmuls, tt
 
 set_fp32_matmuls()
 
-SRC = (Path(FA.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+# the kernel's tile plan lives in the flash body it shares with the
+# ablation builds
+SRC = "".join((Path(FA.__file__).parents[1] / "csrc" / name).read_text()
+              for name in ("flash_body.cuh", "flash_attention.cu"))
 SMEM_LIMIT = 232448          # dynamic shared memory of one H100 block
 # every head dim the dispatch sends to the kernel (ops/attention.py)
 KERNEL_DIMS = list(range(8, 161, 8))

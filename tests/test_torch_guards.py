@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "mimo_tpu_torch.entry.profile", "mimo_tpu_torch.pipelines.interp",
     "mimo_tpu_torch.tools.ablate_flash", "mimo_tpu_torch.tools.time_tattn_core",
     "mimo_tpu_torch.tools.time_norms", "mimo_tpu_torch.tools.timing",
+    "mimo_tpu_torch.weights.convert", "mimo_tpu_torch.tools.compare_sass",
 ]
 
 
