@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero:
    instantiation spills, or ptxas ignored a setmaxnreg;
 3. kernels: each kernel wrapper (the function the main path calls; one
    call must count one launch) against its plain PyTorch version on the
-   card at the main path's shapes (ragged edges included), max error beside
+   card at the main path's shapes (ragged edges included) and at the edit
+   path's 784x784 ones (98x98 latents: a ragged last row tile of the tile
+   core at every level, a 4-row last query tile of flash at 9604 queries,
+   GroupNorm's stream tier at level 0), max error beside
    the stated tolerance; the kernel's, the plain version's and, where one
    PyTorch call computes the same function or the tile core's product(s),
    that call's time (a yardstick the port never calls), beside the bound:
@@ -45,7 +48,20 @@ Phases, in order; any failure exits non-zero:
    three) 20 times in fp32, which must give one result, and the clip at
    256x256 for 2 steps twice through the same Runner, whose two videos must
    be equal in every bit;
-6. the last line: {"ok": true, "device": {...}}.
+6. edit path: ``entry.edit.edit`` through phase 5's Runner on a 48-frame
+   720x1280 template drawn in memory (a figure walking far enough for
+   several ROI shots, a textured background, an occlusion patch it passes
+   through) at 784x784, CFG 3.5, 3 DDIM steps; prints the shots, the
+   generated frames and windows, the phase times, composite_back's host
+   time, the peak device memory and every kernel's launch count (each must
+   be > 0); checks 48 uint8 720x1280 frames, the occ patch equal to vid
+   and everything outside the shots' bboxes equal to bk within 1, a pasted
+   region that is not constant, and a second run equal in every bit; then
+   one 150-frame (the CLI's --max-frames) 1-step run, which must fit the
+   card;
+7. the kernels' JSON line (``launches`` from the run of the entry's
+   ``path``: phase 5, 6 or the tool's run of phase 4), then the last line:
+   {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --calibrate`` runs phases 1-2, then the readings
 that place the limits of the small-input agreement check (sound seeds and
@@ -79,6 +95,11 @@ from mimo_tpu_torch.tools.timing import (PEAK_BF16, PEAK_FP32,  # noqa: E402
 STEPS = 4            # DDIM steps of the full-width run
 FRAMES, HEIGHT, WIDTH = 24, 512, 784
 FLASH_ROUNDS = 5     # interleaved kernel / SDPA rounds of phase 3
+# the edit run of phase 6: a 48-frame 720x1280 template edited at the CLI's
+# 784x784 (98x98 latents: UNet levels of 9604 / 2401 / 625 / 169 tokens)
+EDIT_FRAMES, EDIT_SRC, EDIT_SIZE, EDIT_STEPS = 48, (720, 1280), 784, 3
+EDIT_MAX_FRAMES = 150   # the edit CLI's default --max-frames
+EDIT_S = (9604, 2401, 625, 169)
 
 
 def log(msg: str) -> None:
@@ -207,11 +228,13 @@ def call_wrapper(wrapper, *args, **kwargs):
 
 
 def kernel_entry(name, source, replaces, label, err, run, plain, work,
-                 library=None):
+                 library=None, path="animate"):
     """Time the wrapper, its plain version and the library yardstick
     (``library`` = (description, fn), or (reason there is none, None));
     ``work`` = (flops, bytes[, peak[, logits]]) of the function for its
-    bound. One entry of the JSON line."""
+    bound; ``path``: the run whose launch counts the entry reports
+    ("animate", phase 5; "edit", phase 6; "tool", the ablation tool's run
+    of phase 4). One entry of the JSON line."""
     ms = cuda_ms(run, 10)
     plain_ms = cuda_ms(plain, 3)
     lib_what, lib_fn = library or ("no single call", None)
@@ -224,7 +247,7 @@ def kernel_entry(name, source, replaces, label, err, run, plain, work,
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 shape=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                library=lib_what)
+                library=lib_what, path=path)
 
 
 def median_range(xs, fmt="%.3f", scale=1.0):
@@ -255,7 +278,8 @@ def concat_bank(k, v, bank):
 
 def phase_kernels():
     """Each kernel wrapper against its plain version on the card, at the
-    main path's shapes. Returns one entry of measured numbers per case."""
+    main path's and the edit path's shapes. Returns one entry of measured
+    numbers per case."""
     log("== phase 3: kernel wrappers vs plain versions (card, main-path "
         "shapes)")
     from mimo_tpu_torch.ops import ffn as FF
@@ -290,7 +314,15 @@ def phase_kernels():
         (FA.flash_attention_nt, 8, 40, 2, 6272, 6272, 0, True),
         (FA.flash_attention_nt_bank, 8, 40, 2, 6272, 6272, 6272, True),
     ]
-    for wrapper, heads, d, b, sq, sk1, sk2, views in cases:
+    # the edit path's levels 0 and 1 (last query tile of 4 rows at level 0;
+    # B = 1 there: the plain version's fp32 logits take ~6 GB a batch row)
+    edit_cases = [
+        (FA.flash_attention_nt, 8, 40, 1, 9604, 9604, 0, False),
+        (FA.flash_attention_nt_bank, 8, 40, 1, 9604, 9604, 9604, False),
+        (FA.flash_attention_nt, 8, 80, 2, 2401, 2401, 0, False),
+        (FA.flash_attention_nt_bank, 8, 80, 2, 2401, 2401, 2401, False),
+    ]
+    for wrapper, heads, d, b, sq, sk1, sk2, views in cases + edit_cases:
         inner = heads * d
         # LN-scaled activations through random projections: logits of a
         # few units, so the softmax is neither flat nor one-hot
@@ -320,7 +352,8 @@ def phase_kernels():
             lambda: wrapper(*args),
             lambda: FA.attention_plain(q, k, v, heads, *bank),
             flash_work(b, heads, d, sq, sk1 + sk2, n_in),
-            sdpa_call(q, k, v, heads, bank)))
+            sdpa_call(q, k, v, heads, bank),
+            "edit" if sq in EDIT_S else "animate"))
 
     # the kernel against SDPA on the same inputs, at UNet levels 0 and 1 on
     # the 2-row subset and at the full main-path batch (the uncond/cond
@@ -369,10 +402,13 @@ def bit_equal(label: str, fn) -> None:
 def group_norm_cases(GN, randn):
     """``group_norm_fused`` against ``group_norm_plain`` at every GroupNorm
     shape of a UNet3D step (levels 0-3) and of the VAE decoder
-    (``tools/time_norms.py::GN_CASES``), beside F.group_norm where no row
+    (``tools/time_norms.py::GN_CASES``, then EDIT_GN_CASES at 784x784),
+    beside F.group_norm where no row
     add or SiLU is fused; then a level-0 call (the resident tier's clusters
     of 16), a level-1 call (clusters of 6) and a level-0 call at C = 960
-    (the stream tier) each twice, which must give equal bits; then small
+    (the stream tier), and at 784x784 a level-0 call (stream) and a level-1
+    call at C = 960 (clusters of 9) each twice, which must give equal
+    bits; then small
     and odd shapes through both tiers."""
     from mimo_tpu_torch.tools import time_norms as TN
     why = ("bf16 output rounding (<= 1 ulp = 2^-7 relative) on fp32 "
@@ -380,12 +416,15 @@ def group_norm_cases(GN, randn):
     bf = torch.bfloat16
     entries = []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for n, s, c, radd, silu in TN.GN_CASES:
+    for n, s, c, radd, silu in TN.GN_CASES + EDIT_GN_CASES:
         groups, eps = 32, TN.gn_eps(silu)
-        # the Pallas variant the JAX package takes there: the VAE's frames
-        # resident in VMEM at 64x98, two-phase above; the UNet's (S, N, C)
+        # the Pallas variant the JAX package takes there: the UNet's (S, N,
+        # C); the VAE's frames resident in VMEM where 4 slabs and 2 row
+        # tiles fit its 40 MiB (64x98), else two-phase
+        vmem = 4 * s * c * 2 + 2 * min(s, 1024) * c * 4
         replaces = ("mimo_tpu/ops/groupnorm.py:"
-                    + ("221" if n == 48 else "275" if s == 6272 else "298"))
+                    + ("221" if n == 48 else "275" if vmem <= 40 * 2 ** 20
+                       else "298"))
         x = randn(n, s, c, scale=3.0) + 0.5
         scale = randn(c).float() * 0.5 + 1.0
         bias = randn(c).float() * 0.5
@@ -417,11 +456,14 @@ def group_norm_cases(GN, randn):
         entry = kernel_entry("group_norm_fused",
                              "mimo_tpu_torch/csrc/groupnorm.cu", replaces,
                              label, err, lambda: GN.group_norm_fused(*args),
-                             lambda: GN.group_norm_plain(*args), work, library)
+                             lambda: GN.group_norm_plain(*args), work, library,
+                             "edit" if (n, s, c, radd, silu) in EDIT_GN_CASES
+                             else "animate")
         log(f"    {2 * x.numel() * 2 / (entry['ms'] * 1e-3) / 1e9:.0f} GB/s "
             f"for 1 read + 1 write")
         entries.append(entry)
-    for n, s, c in ((48, 6272, 320), (48, 1568, 640), (48, 6272, 960)):
+    for n, s, c in ((48, 6272, 320), (48, 1568, 640), (48, 6272, 960),
+                    (48, 9604, 320), (48, 2401, 960)):
         x = randn(n, s, c, scale=3.0) + 0.5
         args = (x, randn(c).float() + 1.0, randn(c).float(), 32, 1e-5, True,
                 randn(n, c))
@@ -453,15 +495,33 @@ def group_norm_cases(GN, randn):
     return entries
 
 
+# GroupNorm at the edit path's 784x784, as tools/time_norms.py::GN_CASES
+# at 512x784: (n, s, c, row add, SiLU) of UNet levels 0-3 (98x98 latents)
+# and the VAE decoder's 98x98 ... 784x784 frames
+EDIT_GN_CASES = [(48, 9604, 320, True, True), (48, 9604, 320, False, False),
+                 (48, 9604, 640, False, True), (48, 9604, 960, False, True),
+                 (48, 2401, 640, True, True), (48, 2401, 640, False, False),
+                 (48, 2401, 960, False, True), (48, 2401, 1920, False, True),
+                 (48, 625, 1280, True, True), (48, 625, 1280, False, False),
+                 (48, 625, 2560, False, True), (48, 169, 1280, False, False),
+                 (48, 169, 2560, False, True), (8, 9604, 512, False, False),
+                 (8, 38416, 512, False, True), (8, 153664, 256, False, True),
+                 (8, 614656, 128, False, True)]
+# the LN pass at 784x784: (rows, K, PE frames), as time_norms.LN_CASES
+EDIT_LN_CASES = [(48 * 9604, 320, 0), (48 * 2401, 640, 0),
+                 (48 * 625, 1280, 0), (48 * 169, 1280, 0),
+                 (48 * 9604, 320, 24)]
+
+
 def ln_rows_cases(FF, randn):
     """The LN row pass (``ln_rows``, the tile core's LN prologue) against
     ``ln_rows_plain`` at UNet levels 0-3 (48 frames) and with the motion
     modules' PE at level 0 (``tools/time_norms.py::LN_CASES``), beside
     F.layer_norm; the PE at level 3 (the wide-row kernel, as at levels
-    2-3) and K = 232 (ragged); then K = 232, 136 (17 vectors: 8 lanes x 3,
-    some idle), 64 (one vector a lane), 1280 and 2048 (past the register
-    plan) through both kernels (forced); then one level-0 call twice,
-    which must give equal bits."""
+    2-3), K = 232 (ragged) and EDIT_LN_CASES (784x784); then K = 232, 136
+    (17 vectors: 8 lanes x 3, some idle), 64 (one vector a lane), 1280 and
+    2048 (past the register plan) through both kernels (forced); then one
+    level-0 call twice, which must give equal bits."""
     import torch.nn.functional as F
     from mimo_tpu_torch.tools import time_norms as TN
     why = ("LN rounded to bf16 (then + PE, rounded again) on fp32 statistics "
@@ -473,7 +533,7 @@ def ln_rows_cases(FF, randn):
     # (rows, K, PE frames): rows (b·F + f)·S + s of a CFG pair of F frames
     # for the PE
     for rows, c, frames in TN.LN_CASES + [(2 * 24 * 104, 1280, 24),
-                                          (1000, 232, 0)]:
+                                          (1000, 232, 0)] + EDIT_LN_CASES:
         x = randn(rows, c, scale=2.0) + 0.3
         scale, bias = randn(c, scale=0.3) + 1.0, randn(c, scale=0.3)
         pe = randn(frames, c, scale=0.5) if frames else None
@@ -499,7 +559,8 @@ def ln_rows_cases(FF, randn):
             "ln_rows", "mimo_tpu_torch/csrc/ln_rows.cu",
             "mimo_tpu/ops/ffn.py:245", label, err,
             lambda: FF.ln_rows(*args), lambda: FF.ln_rows_plain(*args), work,
-            library))
+            library, "edit" if (rows, c, frames) in EDIT_LN_CASES
+            else "animate"))
     for c in (232, 136, 64, 1280, 2048):
         x = randn(999, c, scale=2.0) + 0.3
         pe = randn(5, c, scale=0.5)
@@ -553,8 +614,12 @@ def gemm_chain_cases(FF, TA, randn):
     # then ragged edges of the tile core: fewer rows than one 128-row tile,
     # level 3's rows at C=320, and C=232 (K past whole 64-deep stages, N
     # past whole tiles, GEGLU value/gate tiles cut at the edge)
+    # then the edit path's levels 0-3 at 784x784 (98x98 latents: R mod 128
+    # = 64 / 48 / 48 / 48, a ragged last row tile at every level)
+    edit_rows = [(48 * s, c) for s, c in zip(EDIT_S, (320, 640, 1280, 1280))]
     for rows, c in ((48 * 6272, 320), (48 * 400, 1280), (48 * 104, 1280),
-                    (48 * 104, 320), (40, 1280), (40, 320), (1000, 232)):
+                    (48 * 104, 320), (40, 1280), (40, 320), (1000, 232),
+                    *edit_rows):
         x = randn(rows, c, scale=2.0) + 0.3
         ln_p, res = ln(c), randn(rows, c)
         ff_p = {"proj_in": lin(c, 8 * c), "proj_out": lin(4 * c, c)}
@@ -594,10 +659,14 @@ def gemm_chain_cases(FF, TA, randn):
             err = check(label, got, plain(*args))
             entries.append(kernel_entry(
                 wrapper.__name__, ffn_src, replaces, label, err,
-                lambda: wrapper(*args), lambda: plain(*args), work, library))
+                lambda: wrapper(*args), lambda: plain(*args), work, library,
+                "edit" if (rows, c) in edit_rows else "animate"))
 
-    # motion modules: (B=2, F=24, S, C), 8 heads; levels 0-3
-    for s, c in ((6272, 320), (1568, 640), (400, 1280), (104, 1280)):
+    # motion modules: (B=2, F=24, S, C), 8 heads; levels 0-3 at 512x784,
+    # then at 784x784
+    levels = list(zip((6272, 1568, 400, 104) + EDIT_S,
+                      (320, 640, 1280, 1280) * 2))
+    for s, c in levels:
         x = randn(2, 24, s, c, scale=2.0)
         attn = {k: lin(c, c, bias=False) for k in ("to_q", "to_k", "to_v")}
         attn["to_out"] = lin(c, c)
@@ -618,7 +687,7 @@ def gemm_chain_cases(FF, TA, randn):
             lambda: TA.temporal_attention_ln(*args),
             lambda: TA.temporal_attention_plain(*args), work,
             ("no single call: LN + PE, two products and an F x F softmax "
-             "attention", None)))
+             "attention", None), "edit" if s in EDIT_S else "animate"))
     return entries
 
 
@@ -635,7 +704,8 @@ def temporal_core_cases(TA, randn):
            "o) and o can round the other way (2^-8 max|v|): |d| <= 2^-7 "
            "max|v|")
     entries = []
-    for b, f, s, c, heads in TC.CASES:
+    edit = [(2, 24, s, c, 8) for s, c in zip(EDIT_S, (320, 640, 1280, 1280))]
+    for b, f, s, c, heads in TC.CASES + edit:
         qkv = randn(b * f * s, 3 * c, scale=2.0)
         args = (qkv, b, f, s, heads)
         got = call_wrapper(TA.temporal_attn_core, *args)
@@ -653,7 +723,8 @@ def temporal_core_cases(TA, randn):
             lambda: TA.temporal_attn_core_plain(*args),
             (flops, nbytes, PEAK_BF16, logits),
             ("F.scaled_dot_product_attention on contiguous (B·S, H, F, d) "
-             "copies", lambda: F.scaled_dot_product_attention(q, k, v))))
+             "copies", lambda: F.scaled_dot_product_attention(q, k, v)),
+            "edit" if s in EDIT_S else "animate"))
     return entries
 
 
@@ -782,7 +853,8 @@ def phase_ablation():
                         name, src, "tools/ablate_flash.py:210", label, err,
                         lambda: AB.run(*args, heads, mode, pre),
                         lambda: AB.run_plain(*args, heads, mode, pre),
-                        AB.mode_work(mode, b, heads, d, sq, sk), library))
+                        AB.mode_work(mode, b, heads, d, sq, sk), library,
+                        "tool"))
 
     log("  the tool's run: python -m mimo_tpu_torch.tools.ablate_flash")
     AB.run.launches = 0
@@ -936,7 +1008,7 @@ def phase_main_path():
     if std <= 1e-4:
         raise AssertionError("output is constant")
     window_determinism(runner)
-    return launches
+    return launches, runner
 
 
 def accumulation_determinism(pose2vid, win, wts, runs: int = 20) -> None:
@@ -1006,6 +1078,160 @@ def window_determinism(runner) -> None:
         raise AssertionError("two runs of one clip differ")
 
 
+def edit_template(count, speed):
+    """A ``count``-frame template of EDIT_SRC (H x W) frames drawn in
+    memory, as ``entry.template.Template``: a figure (an sdc-like pose
+    render on black) walks ``speed`` pixels a frame, turning at the frame's
+    edges; bk is a textured background, vid the background with the figure
+    painted in, occ a fixed patch the figure passes through. Returns the
+    template and the occlusion patch (rows, cols)."""
+    from mimo_tpu_torch.entry.template import Template
+    h, w = EDIT_SRC
+    yy, xx = np.mgrid[0:h, 0:w]
+    bk = np.stack([(xx // 3 + yy // 5) % 200 + 30,
+                   (xx // 7) % 90 + 100 + (yy // 40) % 2 * 40,
+                   (yy // 2) % 160 + 60], axis=-1).astype(np.uint8)
+    occ_patch = (slice(380, 470), slice(560, 700))
+    occ = np.zeros((h, w, 3), np.uint8)
+    occ[occ_patch] = 255
+    sdc, vid = [], []
+    span = w - 2 * 140
+    for t in range(count):
+        p = (speed * t) % (2 * span)
+        cx = 140 + (p if p < span else 2 * span - p)
+        f = np.zeros((h, w, 3), np.uint8)
+        f[250:550, cx - 45:cx + 45] = (120, 180, 90)            # torso, legs
+        f[190:250, cx - 28:cx + 28] = (200, 120, 80)            # head
+        f[280:300, cx - 110:cx + 110] = (80, 90, 200)           # arms
+        sdc.append(f)
+        body = f.any(-1)
+        v = bk.copy()
+        v[body] = f[body] // 2 + 90
+        vid.append(v)
+    tpl = Template(path="in-memory", fps=30, sdc=sdc, vid=vid,
+                   bk=[bk] * count, occ=[occ] * count)
+    return tpl, occ_patch
+
+
+def phase_edit(runner):
+    """The edit path (``entry.edit.edit``) at full width: ROI shots of an
+    EDIT_FRAMES-frame template, one generation at EDIT_SIZE^2, the
+    feathered, occlusion-aware paste-back; its checks; a second run for
+    equal bits; then a run at the CLI's EDIT_MAX_FRAMES frames, 1 step,
+    which must fit the card. Returns the first run's launch counts."""
+    log("== phase 6: edit path")
+    from mimo_tpu_torch.entry import edit as ED
+    from mimo_tpu_torch.pipelines import pose2vid
+    from mimo_tpu_torch.utils import frames as FU
+    ref, _ = template_frames()
+    kw = dict(width=EDIT_SIZE, height=EDIT_SIZE, cfg_scale=3.5, seed=42)
+
+    def shots_of(tpl):
+        """(context list, bbox list, generated frames, windows)."""
+        _, _, _, _, ctx, bboxes = FU.crop_human_clip_auto_context(
+            tpl.sdc, tpl.vid, tpl.bk, ED.OVERLAY)
+        gen = sum(len(c) for c in ctx)
+        st = pose2vid.Pose2VideoStatic(
+            cfg=runner.cfg, num_frames=gen, height=EDIT_SIZE,
+            width=EDIT_SIZE, num_inference_steps=1, guidance_scale=3.5)
+        return ctx, bboxes, gen, pose2vid.make_windows(st)[0].shape[0]
+
+    composite_s = []
+    composite_back = ED.composite_back
+
+    def timed_composite(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = composite_back(*args, **kwargs)
+        composite_s.append(time.perf_counter() - t0)
+        return out
+
+    tpl, occ_patch = edit_template(EDIT_FRAMES, 20)
+    ctx, bboxes, gen, windows = shots_of(tpl)
+    log(f"  template: {EDIT_FRAMES} frames {EDIT_SRC[0]}x{EDIT_SRC[1]}; "
+        f"{len(ctx)} ROI shots {[(c[0], c[-1]) for c in ctx]} with bboxes "
+        f"{bboxes}; {gen} generated frames at {EDIT_SIZE}x{EDIT_SIZE} in "
+        f"{windows} context windows, CFG 3.5, {EDIT_STEPS} DDIM steps "
+        f"(UNet3D batch {2 * windows * runner.cfg.pipeline.context_frames} "
+        f"frames of {EDIT_SIZE // 8}x{EDIT_SIZE // 8} latents)")
+    if len(ctx) < 2:
+        raise AssertionError("the edit template made one ROI shot")
+    counters = kernel_wrappers()
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ED.composite_back = timed_composite
+    try:
+        t0 = time.perf_counter()
+        out = ED.edit(runner, ref, tpl, steps=EDIT_STEPS, **kw)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        again = ED.edit(runner, ref, tpl, steps=EDIT_STEPS, **kw)
+    finally:
+        ED.composite_back = composite_back
+    tm = runner.last_timings
+    log(f"  edit run 1: {wall:.2f} s wall | prepare {tm['prepare']:.1f} ms | "
+        f"mean step {tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms "
+        f"(CUDA events) | composite_back {composite_s[0] * 1e3:.0f} ms "
+        f"(host) | peak device memory {peak:.1f} GiB")
+    log(f"  kernel launches in edit run 1: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the edit path never launched {name}")
+
+    if len(out) != EDIT_FRAMES or any(
+            f.shape != (*EDIT_SRC, 3) or f.dtype != np.uint8 for f in out):
+        raise AssertionError(f"edit output: {len(out)} frames "
+                             f"{out[0].shape} {out[0].dtype}")
+    occ_err = bk_err = 0
+    pasted = []
+    for i, frame in enumerate(out):
+        f = frame.astype(int)
+        occ_err = max(occ_err, int(np.abs(f[occ_patch]
+                                          - tpl.vid[i][occ_patch]).max()))
+        inside = np.zeros(EDIT_SRC, bool)
+        for c, (x0, x1, y0, y1) in zip(ctx, bboxes):
+            if i in c:
+                inside[y0:y1, x0:x1] = True
+        outside = ~inside
+        outside[occ_patch] = False
+        bk_err = max(bk_err, int(np.abs(f[outside]
+                                        - tpl.bk[i][outside]).max()))
+        inside[occ_patch] = False
+        pasted.append(frame[inside].astype(np.float32).std())
+    same = all(np.array_equal(a, b) for a, b in zip(out, again))
+    log(f"  output: {len(out)} frames {out[0].shape} uint8; |out - vid| in "
+        f"the occ patch <= {occ_err}, |out - bk| outside the shots' bboxes "
+        f"<= {bk_err} (limit 1 each: the cross-fade's float blend truncated "
+        f"to uint8); pasted region std {min(pasted):.2f} to "
+        f"{max(pasted):.2f}; run 2 {'equal in every bit' if same else 'DIFFERS'}")
+    if occ_err > 1 or bk_err > 1:
+        raise AssertionError("the paste-back changed pixels it must keep")
+    if min(pasted) <= 1.0:
+        raise AssertionError("a pasted region is constant")
+    if not same:
+        raise AssertionError("two edit runs differ")
+
+    tpl, _ = edit_template(EDIT_MAX_FRAMES, 2)
+    ctx, _, gen, windows = shots_of(tpl)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = ED.edit(runner, ref, tpl, steps=1, max_frames=EDIT_MAX_FRAMES, **kw)
+    wall = time.perf_counter() - t0
+    tm = runner.last_timings
+    log(f"  edit at the CLI's --max-frames: {EDIT_MAX_FRAMES} frames, "
+        f"{len(ctx)} shot(s), {gen} generated frames in {windows} windows "
+        f"(window_chunk None: one UNet3D call of "
+        f"{2 * windows * runner.cfg.pipeline.context_frames} frames), 1 step:"
+        f" {wall:.2f} s wall | prepare {tm['prepare']:.1f} ms | step "
+        f"{tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms | peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB"
+        f" of {torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}")
+    if len(out) != EDIT_MAX_FRAMES:
+        raise AssertionError(f"{len(out)} frames out of {EDIT_MAX_FRAMES}")
+    return launches
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the main path (each counts its launches)."""
     from mimo_tpu_torch.ops import ffn as FF
@@ -1071,6 +1297,7 @@ def _leaves(tree):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = phase_device()
@@ -1084,18 +1311,22 @@ def main() -> None:
         print(json.dumps({"kernels": entries}))
         return
     ablation, ablation_launches = phase_ablation()
-    launches = phase_main_path()
-    launches.update(ablation_launches)
+    animate_launches, runner = phase_main_path()
+    launches = {"animate": animate_launches, "tool": ablation_launches,
+                "edit": phase_edit(runner)}
     kernels = []
     for e in entries + ablation:
         kernels.append({"name": e["name"], "route": e["route"],
                         "source": e["source"], "replaces": e["replaces"],
-                        "shape": e["shape"], "launches": launches[e["name"]],
+                        "shape": e["shape"], "path": e["path"],
+                        "launches": launches[e["path"]][e["name"]],
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                         "bound_by": e["bound_by"],
                         "library_ms": e["library_ms"],
                         "library": e["library"]})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (build "
+        f"included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

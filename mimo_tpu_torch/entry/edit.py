@@ -1,0 +1,171 @@
+"""Video character editing (run_edit.py semantics): ROI-clip the template,
+generate, paste back with feather masks, occlusion compositing and an
+overlap cross-fade.
+
+Counterpart of ``mimo_tpu/entry/edit.py``, with one API difference:
+``edit`` takes a template directory or a ``Template`` already in memory
+(as ``entry.animate.animate`` takes pose frames), so it runs where there is
+no OpenCV to decode the template's videos. Without OpenCV the paste-back's
+resizes go through ``utils.frames.resize_frame``'s torch path, so the
+output differs from an OpenCV run by that resize's rounding
+(``tests/test_torch_frames.py::test_resize_without_cv2_close_to_cv2``
+bounds it). The paste-back stays numpy on the host, as in the reference.
+
+CLI: python -m mimo_tpu_torch.entry.edit --ref ref.png --template dir/ \\
+        --output out.mp4 [--weights bundle.npz] [--W 784 --H 784 ...]
+The CLI runs on a CUDA device and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from mimo_tpu_torch.config import DTypePolicy, MIMOConfig
+from mimo_tpu_torch.entry.runner import (Runner, init_random_params,
+                                         load_params, prep_reference_image)
+from mimo_tpu_torch.entry.template import Template, load_template
+from mimo_tpu_torch.utils import frames as FU
+from mimo_tpu_torch.utils import video_io as VIO
+
+OVERLAY = 4  # shot cross-fade frames (run_edit.py:216)
+
+
+def composite_back(video: np.ndarray, context_list, bbox_clip_list,
+                   pad_info, bk_ori, vid_ori, occ_ori,
+                   overlay: int = OVERLAY) -> List[np.ndarray]:
+    """Paste generated crops back into the full frames: unpad → place at
+    the shot's bbox → feathered blend onto the original background →
+    occlusion alpha-over of the source video → linear cross-fade on
+    shot-overlap frames. Frames no shot covers are dropped."""
+    n_total = len(bk_ori)
+    res: List[Optional[np.ndarray]] = [None] * n_total
+    video_idx = 0
+    for k, context in enumerate(context_list):
+        start_i = context[0]
+        bbox = bbox_clip_list[k]
+        for i in context:
+            bk_image = bk_ori[i].astype(np.float32)
+            fh, fw = bk_image.shape[:2]
+            pad_h, pad_w, padding_v = pad_info[video_idx]
+            frame = video[video_idx]  # (H, W, 3) float [0,1]
+            frame = FU.resize_frame((frame * 255).astype(np.uint8),
+                                    pad_w, pad_h)
+            top, bottom, left, right = padding_v
+            frame = frame[top:pad_h - bottom, left:pad_w - right]
+
+            w_min, w_max, h_min, h_max = bbox
+            canvas = np.full((fh, fw, 3), 255, np.float32)
+            ch, cw = frame.shape[:2]
+            canvas[h_min:h_min + ch, w_min:w_min + cw] = frame
+
+            mask_full = np.zeros((fh, fw), np.float32)
+            feather = FU.get_feather_mask(bbox, (fw, fh), (ch, cw))
+            mask_full[h_min:h_min + ch, w_min:w_min + cw] = feather
+
+            out = canvas * mask_full[..., None] + \
+                bk_image * (1 - mask_full[..., None])
+
+            if occ_ori is not None:
+                occ = occ_ori[i][..., 0].astype(np.float32) / 255.0
+                out = out * (1 - occ[..., None]) + \
+                    vid_ori[i].astype(np.float32) * occ[..., None]
+
+            if res[i] is None:
+                res[i] = out
+            else:
+                factor = (i - start_i + 1) / (overlay + 1)
+                res[i] = res[i] * (1 - factor) + out * factor
+            video_idx += 1
+    return [np.clip(r, 0, 255).astype(np.uint8) for r in res
+            if r is not None]
+
+
+def edit(runner: Runner, ref_img: np.ndarray,
+         template: Union[str, os.PathLike, Template], *,
+         width: int = 784, height: int = 784, steps: int = 25,
+         cfg_scale: float = 3.5, seed: int = 42,
+         max_frames: int = 150) -> List[np.ndarray]:
+    """The edited video as (H, W, 3) uint8 frames at the template's size.
+    ``template``: a template directory, or a ``Template`` in memory (its
+    streams are cut to ``max_frames``); either needs a background (bk)."""
+    if isinstance(template, (str, os.PathLike)):
+        tpl = load_template(os.fspath(template), max_frames=max_frames,
+                            require_bk=True)
+    else:
+        tpl = template
+        if tpl.bk is None:
+            raise FileNotFoundError(f"{tpl.path}/bk.mp4 required for the "
+                                    f"edit flow")
+    sdc = list(tpl.sdc)[:max_frames]
+    bk_ori = list(tpl.bk)[:max_frames]
+    vid_ori = list(tpl.vid)[:max_frames] if tpl.vid else bk_ori
+    occ_ori = list(tpl.occ)[:max_frames] if tpl.occ is not None else None
+    ref = prep_reference_image(ref_img)
+
+    pose_c, _, bk_c, _, context_list, bbox_clip_list = \
+        FU.crop_human_clip_auto_context(sdc, vid_ori, bk_ori, OVERLAY)
+
+    pose_in, bk_in, pad_info = [], [], []
+    for p, b in zip(pose_c, bk_c):
+        pose_in.append(FU.pad_img(p, (0, 0, 0))[0])
+        bb, padding_v = FU.pad_img(b, (255, 255, 255))
+        bk_in.append(bb)
+        pad_info.append((bb.shape[0], bb.shape[1], padding_v))
+
+    video = runner.generate(ref, pose_in, bk_in, width=width, height=height,
+                            steps=steps, cfg_scale=cfg_scale, seed=seed)
+
+    return composite_back(video, context_list, bbox_clip_list, pad_info,
+                          bk_ori, vid_ori, occ_ori)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="MIMO video character edit "
+                                             "(PyTorch port)")
+    ap.add_argument("--ref", required=True)
+    ap.add_argument("--template", required=True)
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--weights", default=None,
+                    help=".npz bundle from `python -m "
+                         "mimo_tpu_torch.weights.convert` "
+                         "(random init if omitted — smoke-test mode)")
+    ap.add_argument("--W", type=int, default=784)
+    ap.add_argument("--H", type=int, default=784)
+    ap.add_argument("--steps", type=int, default=25)
+    ap.add_argument("--cfg", type=float, default=3.5)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--max-frames", type=int, default=150)
+    args = ap.parse_args(argv)
+
+    # validate inputs before the (slow) model init
+    tpl_probe = load_template(args.template, max_frames=1, require_bk=True)
+    ref = VIO.load_image(args.ref)
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("mimo_tpu_torch.entry.edit needs a CUDA device "
+                           "(torch.cuda.is_available() is False); the "
+                           "library API (Runner, edit) takes an explicit "
+                           "device")
+    device = torch.device("cuda")
+    dtype = DTypePolicy.for_device(device).compute_dtype
+    cfg = MIMOConfig()
+    if args.weights:
+        params = load_params(args.weights, device=device, dtype=dtype)
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_random_params(cfg, gen, dtype=dtype)
+    runner = Runner(cfg=cfg, params=params, device=device, dtype=dtype)
+    frames = edit(runner, ref, args.template, width=args.W, height=args.H,
+                  steps=args.steps, cfg_scale=args.cfg, seed=args.seed,
+                  max_frames=args.max_frames)
+    VIO.save_video(frames, args.output, fps=tpl_probe.fps)
+    print(f"saved {len(frames)} frames to {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -76,6 +76,51 @@ def test_tile_width_matches_kernel_source():
     assert int(re.search(r"constexpr int kBN = (\d+);", src)[1]) == FF.TILE_N
 
 
+# rows R = 48 frames x S tokens of the UNet levels 0-3: 64x98 latents
+# (512x784 frames, whole 128-row tiles), then the edit path's 98x98
+# (784x784: R mod 128 = 64 / 48 / 48 / 48), then ragged small calls
+ROWS = [48 * s for s in (6272, 1568, 400, 104, 9604, 2401, 625, 169)] + [
+    40, 1000]
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("n,geglu", [(320, False), (1280, True),
+                                     (3840, False)])
+def test_row_tiles_cover_ragged_rows(m, n, geglu):
+    """The tile core's persistent walk (csrc/gemm.cu: gemm_kernel, launch):
+    a grid of min(tiles, SMs) blocks; block b's producer loads its tiles b,
+    b + grid, ... in order, and consumer warpgroup cw takes every other one
+    of them (cw, cw + 2, ...), each as two 64-row epilogue halves. Every
+    (row tile, column tile) is stored once, and the rows past M of the last
+    row tile (a whole half where R mod 128 <= 64) are masked, never
+    stored."""
+    src = (Path(FF.__file__).parents[1] / "csrc" / "gemm.cu").read_text()
+    bm = int(re.search(r"constexpr int kBM = (\d+);", src)[1])
+    sms = 132
+    row_tiles = -(-m // bm)
+    tiles = row_tiles * FF.col_tiles(n, geglu)
+    grid = min(tiles, sms)
+    stored = np.zeros((row_tiles * bm, FF.col_tiles(n, geglu)), int)
+    for b in range(grid):
+        produced = list(range(b, tiles, grid))
+        consumed = {cw: list(range(b + cw * grid, tiles, 2 * grid))
+                    for cw in (0, 1)}
+        assert produced[0::2] == consumed[0] and produced[1::2] == consumed[1]
+        for t in produced:
+            row0, col = t // FF.col_tiles(n, geglu) * bm, \
+                t % FF.col_tiles(n, geglu)
+            for half in (row0, row0 + 64):
+                rows = np.arange(half, half + 64)
+                stored[rows[rows < m], col] += 1     # copy_out's r < e.m
+    assert (stored[:m] == 1).all() and not stored[m:].any()
+    tail = m - (row_tiles - 1) * bm
+    assert 0 < tail <= bm
+    if m in ROWS[:4]:
+        assert tail == bm                    # 64x98 latents: no ragged tile
+    elif m in ROWS[4:8]:
+        assert tail == {460992: 64}.get(m, 48)
+
+
 def _columns(n: int, geglu: bool):
     """Output columns of each weight row the tiles read: value column and,
     for GEGLU, its gate column (-1 where a row is padding)."""

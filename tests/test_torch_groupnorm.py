@@ -109,14 +109,22 @@ def test_layers_group_norm_matches_jax(shape, groups, eps, radd, silu):
 
 # the GroupNorm calls of one UNet3D step (48 frames: 64x98 latents and
 # 32x49, 16x25, 8x13 below; the up blocks' first norms see the concatenated
-# skip channels) and of the VAE decoder (vae_chunk 8 frames, up to 512x784)
+# skip channels) and of the VAE decoder (vae_chunk 8 frames, up to 512x784);
+# then the same at the edit path's 784x784 (98x98 latents: 49x49, 25x25,
+# 13x13 below)
 UNET3D_SHAPES = (
     [(48, 6272, c) for c in (320, 640, 960)]
     + [(48, 1568, c) for c in (320, 640, 960, 1280, 1920)]
     + [(48, 400, c) for c in (640, 1280, 1920, 2560)]
-    + [(48, 104, c) for c in (1280, 2560)])
+    + [(48, 104, c) for c in (1280, 2560)]
+    + [(48, 9604, c) for c in (320, 640, 960)]
+    + [(48, 2401, c) for c in (320, 640, 960, 1280, 1920)]
+    + [(48, 625, c) for c in (640, 1280, 1920, 2560)]
+    + [(48, 169, c) for c in (1280, 2560)])
 VAE_SHAPES = [(8, 6272, 512), (8, 25088, 512), (8, 100352, 512),
-              (8, 100352, 256), (8, 401408, 256), (8, 401408, 128)]
+              (8, 100352, 256), (8, 401408, 256), (8, 401408, 128),
+              (8, 9604, 512), (8, 38416, 512), (8, 153664, 512),
+              (8, 153664, 256), (8, 614656, 256), (8, 614656, 128)]
 H100_SMS = 132
 
 
@@ -180,15 +188,17 @@ def _check_resident(s, c, groups, itemsize):
 @pytest.mark.parametrize("n,s,c", UNET3D_SHAPES + VAE_SHAPES)
 def test_plan_covers_main_path_in_one_round(n, s, c):
     """Every UNet3D and VAE-decoder GroupNorm is one launch: UNet levels
-    1-3 in the resident tier (x read from HBM once) in clusters of <= 8
-    blocks, level 0 (but its concat width C = 960) and the VAE's 64x98
-    frames in clusters of <= 16; the rest in the stream tier, every batch
-    row at once (a team each) with at least 90% of the grid's blocks
-    busy."""
+    1-3 in the resident tier (x read from HBM once), at 64x98 latents in
+    clusters of <= 8 blocks, level 0 (but its concat width C = 960) and the
+    VAE's 64x98 frames in clusters of <= 16; the edit path's level 1
+    (49x49) in clusters of 8 or 9; the rest (the edit path's level 0 too)
+    in the stream tier, every batch row at once (a team each) with at
+    least 90% of the grid's blocks busy."""
     plan = G.gn_plan(n, s, c, 32, 2, H100_SMS)
-    if s <= 1568 or (s == 6272 and c != 960):
+    if s <= 2401 or (s == 6272 and c != 960):
         assert plan == _check_resident(s, c, 32, 2)
-        assert (plan.cluster <= G.MAX_CLUSTER) == (s <= 1568)
+        if s != 2401:
+            assert (plan.cluster <= G.MAX_CLUSTER) == (s <= 1568)
         return
     assert plan == _check_plan(n, s, c, H100_SMS)
     assert plan.teams == n

@@ -91,18 +91,22 @@ def test_plan_maps_lanes_to_vectors(k, lanes, vectors):
 
 @pytest.mark.parametrize("m,k", [(48 * 6272, 320), (48 * 1568, 640),
                                  (48 * 400, 1280), (48 * 104, 1280),
-                                 (1000, 232), (7, 320)])
+                                 (1000, 232), (7, 320),
+                                 # the edit path's 98x98 latents
+                                 (48 * 9604, 320), (48 * 2401, 640),
+                                 (48 * 625, 1280), (48 * 169, 1280)])
 def test_plan_covers_every_row_once(m, k):
     """The warps' runs of row steps cover every row once, two blocks an
-    SM at most; a short call (UNet levels 2-3, at most LN_SHORT_RUNS runs
-    of the grid) takes the wide-row kernel, a warp a row."""
+    SM at most, the last run ragged; a short call (UNet levels 2-3 at
+    64x98 latents, level 3 at 98x98: at most LN_SHORT_RUNS runs of the
+    grid) takes the wide-row kernel, a warp a row."""
     plan = FF.ln_rows_plan(m, k, 132)
     rows_per_step = 32 // plan.lanes
     steps = -(-m // rows_per_step)
     warps = plan.blocks * FF.LN_WARPS
     assert warps * plan.steps_per_warp >= steps
     assert (plan.blocks - 1) * FF.LN_WARPS * plan.steps_per_warp < steps
-    short = m <= 48 * 400 or m in (1000, 7)
+    short = m <= 48 * 400 or m in (1000, 7, 48 * 169)
     assert (plan.vectors == 0) == short
     if short:
         assert (plan.lanes, plan.steps_per_warp) == (32, 1)

@@ -33,8 +33,10 @@ from tests.test_torch_helpers import nn, set_fp32_matmuls, tt
 set_fp32_matmuls()
 
 BF = torch.bfloat16
-# (S, C) of the motion modules at UNet levels 0-3, 8 heads (MIMOConfig())
-LEVELS = [(6272, 320), (1568, 640), (400, 1280), (104, 1280)]
+# (S, C) of the motion modules at UNet levels 0-3, 8 heads (MIMOConfig()):
+# 64x98 latents (512x784 frames), then the edit path's 98x98 (784x784)
+LEVELS = [(6272, 320), (1568, 640), (400, 1280), (104, 1280),
+          (9604, 320), (2401, 640), (625, 1280), (169, 1280)]
 
 
 def _params(rng, c):
