@@ -59,13 +59,28 @@ Phases, in order; any failure exits non-zero:
    region that is not constant, and a second run equal in every bit; then
    one 150-frame (the CLI's --max-frames) 1-step run, which must fit the
    card;
-7. the kernels' JSON line (``launches`` from the run of the entry's
-   ``path``: phase 5, 6 or the tool's run of phase 4), then the last line:
-   {"ok": true, "device": {...}}.
+7. decomp track: a small-input agreement check (SAM2 at real head widths
+   and reduced depth at 512x512, 10 frames so the memory ring fills and
+   wraps, card bf16 + flash against the CPU fp32 plain path: the frames'
+   encoding, the memory attention and the mask decoder, each call taken
+   again on the CPU from the card call's own inputs), then the
+   decomposition half's track stage at full width through
+   ``mimo_tpu_torch.tools.profile_decomp`` (SAM ViT-H, SAM2 Hiera-L and
+   ViTPose-H, seeded random bf16 weights) on a 48-frame 720x480 clip drawn
+   in memory: the known box on frame 0 -> SAM + clean_mask -> SAM2 forwards
+   and backwards -> get_bbox, one automatic_masks and one detector call on
+   frame 0; prints each call's time, the peak memory and the flash launches
+   by head width (d = 72 and d = 16 must both be > 0); checks (48, 720,
+   480) bool masks, frame 0 equal to the prompt frame's mask, (48, 4)
+   boxes inside the frame, and the timed run equal in every bit to the
+   warm-up run before it (each encodes the clip);
+8. the kernels' JSON line (``launches`` from the run of the entry's
+   ``path``: phase 5, 6, 7 or the tool's run of phase 4), then the last
+   line: {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --calibrate`` runs phases 1-2, then the readings
-that place the limits of the small-input agreement check (sound seeds and
-planted faults), and prints no result line. ``python3 chip_smoke.py
+that place the limits of the two small-input agreement checks (sound seeds
+and planted faults), and prints no result line. ``python3 chip_smoke.py
 --kernels`` runs phases 1-3 and the GEMM tile core's breakdown (each launch
 of the FFN and of q|k|v timed alone, beside variants that drop one piece
 of the work and beside torch.matmul of the same products), then prints
@@ -76,6 +91,7 @@ Needs no JAX, no OpenCV and no files from outside the repository; weights
 are random, drawn from a seeded torch.Generator.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -126,10 +142,12 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - want).abs()
     max_err = float(err.max())
+    ref_at = float(want.flatten()[err.argmax()].abs())
     excess = float((err - (atol + rtol * want.abs())).max())
     ok = excess <= 0
-    log(f"  {name}: max_abs_err={max_err:.6g} (tolerance |d| <= {atol} + "
-        f"{rtol}*|ref|: {why}) {'ok' if ok else 'FAIL'}")
+    log(f"  {name}: max_abs_err={max_err:.6g} at |ref|={ref_at:.4g} "
+        f"(tolerance |d| <= {atol} + {rtol}*|ref|: {why}) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max_abs_err {max_err})")
@@ -233,8 +251,8 @@ def kernel_entry(name, source, replaces, label, err, run, plain, work,
     (``library`` = (description, fn), or (reason there is none, None));
     ``work`` = (flops, bytes[, peak[, logits]]) of the function for its
     bound; ``path``: the run whose launch counts the entry reports
-    ("animate", phase 5; "edit", phase 6; "tool", the ablation tool's run
-    of phase 4). One entry of the JSON line."""
+    ("animate", phase 5; "edit", phase 6; "decomp", phase 7; "tool", the
+    ablation tool's run of phase 4). One entry of the JSON line."""
     ms = cuda_ms(run, 10)
     plain_ms = cuda_ms(plain, 3)
     lib_what, lib_fn = library or ("no single call", None)
@@ -322,7 +340,21 @@ def phase_kernels():
         (FA.flash_attention_nt, 8, 80, 2, 2401, 2401, 0, False),
         (FA.flash_attention_nt_bank, 8, 80, 2, 2401, 2401, 2401, False),
     ]
-    for wrapper, heads, d, b, sq, sk1, sk2, views in cases + edit_cases:
+    # the decomposition half's track stage (phase 7): Hiera-L's stage-3
+    # global blocks (d = 72, 8 heads, 64x64 tokens of one 8-frame encode
+    # chunk, q/k/v strided views of one (B, S, 3 * 576) q|k|v product) and
+    # the SAM / SAM2 decoders' image -> token attention (d = 16, 4096 image
+    # tokens against 7 prompt tokens; B = 1, and one automatic_masks prompt
+    # chunk of 256)
+    decomp_cases = [
+        (FA.flash_attention_nt, 8, 72, 8, 4096, 4096, 0, True),
+        (FA.flash_attention_nt, 8, 16, 1, 4096, 7, 0, False),
+        (FA.flash_attention_nt, 8, 16, 256, 4096, 7, 0, False),
+    ]
+    for (wrapper, heads, d, b, sq, sk1, sk2, views), path in (
+            [(c, "edit" if c[4] in EDIT_S else "animate")
+             for c in cases + edit_cases]
+            + [(c, "decomp") for c in decomp_cases]):
         inner = heads * d
         # LN-scaled activations through random projections: logits of a
         # few units, so the softmax is neither flat nor one-hot
@@ -352,8 +384,7 @@ def phase_kernels():
             lambda: wrapper(*args),
             lambda: FA.attention_plain(q, k, v, heads, *bank),
             flash_work(b, heads, d, sq, sk1 + sk2, n_in),
-            sdpa_call(q, k, v, heads, bank),
-            "edit" if sq in EDIT_S else "animate"))
+            sdpa_call(q, k, v, heads, bank), path))
 
     # the kernel against SDPA on the same inputs, at UNet levels 0 and 1 on
     # the 2-row subset and at the full main-path batch (the uncond/cond
@@ -981,9 +1012,7 @@ def phase_main_path():
     animate(runner, ref, frames, **kw)
     log(f"  run 1 (warm-up): {time.perf_counter() - t0:.2f} s wall")
 
-    counters = kernel_wrappers()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     video = animate(runner, ref, frames, **kw)
@@ -1155,9 +1184,7 @@ def phase_edit(runner):
         f"frames of {EDIT_SIZE // 8}x{EDIT_SIZE // 8} latents)")
     if len(ctx) < 2:
         raise AssertionError("the edit template made one ROI shot")
-    counters = kernel_wrappers()
-    for fn in counters:
-        fn.launches = 0
+    counters = reset_counts()
     torch.cuda.reset_peak_memory_stats()
     ED.composite_back = timed_composite
     try:
@@ -1232,6 +1259,226 @@ def phase_edit(runner):
     return launches
 
 
+def decomp_agreement_config():
+    """SAM2 at real head widths and reduced depth at 512^2: Hiera-L's
+    widths and heads with one block a stage but two in stage 3 (its second
+    global: 32x32 = 1024 tokens of 8 heads of 72, so flash runs), one
+    memory-attention layer, the full decoder (1024 image tokens, 8 heads of
+    16)."""
+    from mimo_tpu_torch.decomp import hiera as H
+    from mimo_tpu_torch.decomp import sam2 as S2
+    return S2.SAM2Config(hiera=H.HieraConfig(
+        stages=(1, 1, 2, 1), global_blocks=(3,), input_size=(512, 512)),
+        mem_layers=1)
+
+
+# the agreement check's clip: frame 0 prompted, 9 tracked, so the ring of 6
+# recent memories fills at the 7th tracked frame and drops its oldest after
+DECOMP_AGREE_FRAMES = 10
+# the modules the check holds, each at every call of the card run, and the
+# output of each it compares: the frames' stride-16 features (Hiera, d = 72
+# flash), the memory-conditioned features, and every candidate mask's
+# low-res logits (the decoder, d = 16 flash), not the one the decoder picks:
+# that pick is an argmax, and at a near-tie bf16 may tip it the other way
+# (a sound seed of five did, at its first tracked frame: PERF.md)
+DECOMP_MODULES = ("encode_frames", "memory_attention", "decode_masks")
+
+
+def decomp_agreement_error(seed: int, fault=None):
+    """A SAM2 propagation (10 frames at 512x512: prompt frame 0 with five
+    points, track 9) on the card in bf16 with the flash kernel, held module
+    by module against the CPU fp32 plain path on the same weights (the
+    card's bf16 values): each call of a module in ``DECOMP_MODULES`` is
+    computed again on the CPU from the card call's own inputs, so each
+    reading holds that module's error alone and no difference carries from
+    one step to the next. ``fault`` (a context manager factory) plants a
+    known error in the card run only. Returns {module: (max, mean)
+    absolute error over its calls} and the card run's flash launches by
+    head width."""
+    from collections import Counter
+    from mimo_tpu_torch.decomp import sam2 as S2
+    from mimo_tpu_torch.ops import flash_attention as FAK
+    cfg = decomp_agreement_config()
+    gen = torch.Generator().manual_seed(seed)
+    params = sharpen_attention(object_everywhere(
+        S2.sam2_init(gen, cfg, torch.float32)))
+    cuda_params = _map_tree(params, lambda t: t.to("cuda", torch.bfloat16))
+    cpu_params = _map_tree(cuda_params, lambda t: t.to("cpu", torch.float32))
+    rng = np.random.default_rng(seed)
+    frames = [rng.integers(0, 256, (512, 512, 3)).astype(np.uint8)
+              for _ in range(DECOMP_AGREE_FRAMES)]
+    ys, xs = rng.integers(128, 384, (2, 5))
+    points = np.stack([xs, ys], -1).astype(np.float32)
+
+    calls = {name: [] for name in DECOMP_MODULES}
+
+    def recorder(name):
+        inner = getattr(S2, name)
+
+        def recorded(p, c, *args):
+            out = inner(p, c, *args)
+            calls[name].append((args, out))
+            return out
+        return recorded
+
+    widths = Counter(FAK.flash_attention_nt.widths)
+    with (fault() if fault is not None else contextlib.nullcontext()), \
+            contextlib.ExitStack() as stack:
+        for name in DECOMP_MODULES:
+            stack.enter_context(patched(S2, name, recorder(name)))
+        pred = S2.SAM2VideoPredictor(cuda_params, cfg)
+        pred.init_state(frames)
+        pred.add_new_points(0, points, np.ones(5, np.int32))
+        pred.propagate_logits(list(range(1, DECOMP_AGREE_FRAMES)))
+    widths = FAK.flash_attention_nt.widths - widths
+
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    errors = {}
+    for name in DECOMP_MODULES:
+        errs = [(first(out).float().cpu() - first(getattr(S2, name)(
+            cpu_params, cfg, *(a.float().cpu() for a in args)))).abs()
+            for args, out in calls[name]]
+        errors[name] = (max(float(e.max()) for e in errs),
+                        float(sum(e.sum() for e in errs)
+                              / sum(e.numel() for e in errs)))
+    return errors, dict(widths)
+
+
+def object_everywhere(sam2_params):
+    """Random weights give SAM2's object score either sign, and "no object"
+    sets every mask logit to -1024: bias the score head to "object" so the
+    masks and the memory path carry the decoder's logits."""
+    sam2_params["decoder"]["obj_mlp"]["fc3"]["bias"].fill_(10.0)
+    return sam2_params
+
+
+def sharpen_attention(tree, factor: float = 5.0):
+    """Every attention's query and key projections scaled by ``factor``
+    (logits by its square): at the default init the logits stay well
+    under one, the softmax nearly uniform, and a fault in an attention
+    (its scale, its keys, its rotation) hardly moves the output."""
+    if isinstance(tree, list):
+        for x in tree:
+            sharpen_attention(x, factor)
+    elif isinstance(tree, dict):
+        if "qkv" in tree and "proj_attn" in tree:      # Hiera: q | k | v
+            dout = tree["proj_attn"]["kernel"].shape[0]
+            for leaf in tree["qkv"].values():
+                leaf[..., :2 * dout] *= factor
+        for name in ("to_q", "to_k", "q", "k"):
+            if isinstance(tree.get(name), dict):
+                for leaf in tree[name].values():
+                    leaf *= factor
+        for k, x in tree.items():
+            if k not in ("qkv", "to_q", "to_k", "q", "k"):
+                sharpen_attention(x, factor)
+    return tree
+
+
+# The card-vs-CPU limits of the decomposition check, (max, mean) a module,
+# sit between the sound seeds and the planted faults of ``python3
+# chip_smoke.py --calibrate`` (readings in PERF.md).
+DECOMP_TOLS = {"encode_frames": (0.6, 0.08),
+               "memory_attention": (0.15, 0.01),
+               "decode_masks": (0.04, 0.004)}
+
+
+def small_decomp_agreement() -> None:
+    errors, widths = decomp_agreement_error(7)
+    log(f"  SAM2 {DECOMP_AGREE_FRAMES}x512x512 propagate (real head widths, "
+        f"reduced depth), card bf16 vs CPU fp32 on each call's own inputs "
+        f"(limits between the sound seeds and the planted faults of "
+        f"--calibrate); flash launches by width {widths}:")
+    bad = []
+    for name, (mx, mean) in errors.items():
+        tmx, tmean = DECOMP_TOLS[name]
+        ok = mx <= tmx and mean <= tmean
+        log(f"    {name}: max_abs_err={mx:.4g} mean_abs_err={mean:.4g} "
+            f"(tolerance max <= {tmx}, mean <= {tmean}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(name)
+    if not (widths.get(72) and widths.get(16)):
+        raise AssertionError("the small decomposition run did not reach the "
+                             "flash kernel at d = 72 and d = 16")
+    if bad:
+        raise AssertionError(f"the card's SAM2 disagrees with the CPU "
+                             f"reference in {bad}")
+
+
+def phase_decomp():
+    """The decomposition half's track stage at full width through
+    tools/profile_decomp.py: SAM ViT-H, SAM2 Hiera-L and ViTPose-H in bf16
+    (seeded random weights) on a 48-frame 720x480 clip, a warm-up run then
+    the timed one (each encodes the clip), and the checks: the two runs
+    must give equal bits. Returns the timed run's launch counts."""
+    log("== phase 7: decomp track")
+    small_decomp_agreement()
+    from mimo_tpu_torch.decomp import factory as FA
+    from mimo_tpu_torch.decomp import sam2 as S2
+    from mimo_tpu_torch.ops import flash_attention as FAK
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    t, h, w = PD.CLIP
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = {name: FA.load_params(None, name, cfg, dev, torch.bfloat16, 0)
+              for name, cfg in zip(FA.BUNDLES, FA.configs(tiny=False))}
+    object_everywhere(params["sam2"])
+    models = FA.build_decomp_models(params=params)
+    torch.cuda.synchronize()
+    log(f"  SAM ViT-H, SAM2 Hiera-L, ViTPose-H: " + ", ".join(
+        f"{sum(x.numel() for x in _leaves(params[n])) / 1e6:.1f} M"
+        for n in FA.BUNDLES) + f" params (bf16), random init "
+        f"{time.perf_counter() - t0:.1f} s")
+    frames, seeds, boxes = PD.synth_frames(*PD.CLIP)
+    first_run, bboxes1, _ = PD.warm_up(models, frames, seeds, boxes)
+    prompted = []
+    add_new_points = S2.SAM2VideoPredictor.add_new_points
+
+    def recorded(self, *args):
+        prompted.append(add_new_points(self, *args))
+        return prompted[-1]
+
+    S2.SAM2VideoPredictor.add_new_points = recorded
+    try:
+        counters = reset_counts()
+        res = PD.run(models, frames, seeds, boxes)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        widths = dict(FAK.flash_attention_nt.widths)
+    finally:
+        S2.SAM2VideoPredictor.add_new_points = add_new_points
+    log(f"  kernel launches in the run: {launches}; flash_attention_nt by "
+        f"head width {widths}")
+    if launches["flash_attention_nt"] <= 0 or not (
+            widths.get(72) and widths.get(16)):
+        raise AssertionError("the decomposition path did not launch the "
+                             "flash kernel at d = 72 and d = 16")
+    masks, bboxes = res["masks"], res["bboxes"]
+    from mimo_tpu_torch.decomp.pipeline import DecompConfig
+    from mimo_tpu_torch.ops.connected_components import clean_mask
+    prompt_mask = clean_mask(prompted[0], DecompConfig().mask_min_area)
+    cover = masks.reshape(t, -1).mean(1)
+    same = np.array_equal(masks, first_run) \
+        and np.array_equal(bboxes, bboxes1)
+    log(f"  masks {masks.shape} {masks.dtype}, coverage per frame "
+        f"{cover.min():.4f} to {cover.max():.4f}; frame 0 = the prompt "
+        f"frame's mask: {np.array_equal(masks[0], prompt_mask)}; bboxes "
+        f"{bboxes.shape} in [{bboxes.min()}, {bboxes.max()}]; the warm-up "
+        f"run {'equal in every bit' if same else 'DIFFERS'}")
+    if masks.shape != (t, h, w) or masks.dtype != bool:
+        raise AssertionError(f"track masks {masks.shape} {masks.dtype}")
+    if not np.array_equal(masks[0], prompt_mask):
+        raise AssertionError("frame 0's mask is not the prompt frame's")
+    if bboxes.shape != (t, 4) or bboxes.min() < 0 \
+            or (bboxes[:, [0, 2]] > w).any() or (bboxes[:, [1, 3]] > h).any():
+        raise AssertionError(f"bboxes outside the frame: {bboxes}")
+    if not same:
+        raise AssertionError("two track runs differ")
+    return launches
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the main path (each counts its launches)."""
     from mimo_tpu_torch.ops import ffn as FF
@@ -1244,24 +1491,36 @@ def kernel_wrappers():
             TA.temporal_attention_ln, TA.temporal_attn_core)
 
 
+def reset_counts():
+    """Every kernel wrapper's launch count (and flash's count by head width)
+    set to 0; returns the wrappers."""
+    from mimo_tpu_torch.ops import flash_attention as FA
+    counters = kernel_wrappers()
+    for fn in counters:
+        fn.launches = 0
+    FA.flash_attention_nt.widths.clear()
+    return counters
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` set to ``value`` within."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
 def calibrate() -> None:
     """Readings that place the limits of the small-input agreement check:
     sound runs over several seeds, then runs with a planted fault in the
     card path (the bank keys dropped from the banked flash attention, the
     flash softmax scale off by 25%, the motion modules' PE dropped)."""
-    import contextlib
     from mimo_tpu_torch.models import unet as U
     from mimo_tpu_torch.ops import attention as AT
     from mimo_tpu_torch.ops import flash_attention as FA
-
-    @contextlib.contextmanager
-    def patched(module, name, value):
-        old = getattr(module, name)
-        setattr(module, name, value)
-        try:
-            yield
-        finally:
-            setattr(module, name, old)
 
     tattn = U.temporal_attention_ln
     faults = {
@@ -1283,6 +1542,89 @@ def calibrate() -> None:
         mx, mean = agreement_error(7, fault)
         log(f"  fault '{name}' seed 7: max_abs_err={mx:.4g} mean_abs_err="
             f"{mean:.4g}")
+    decomp_calibrate()
+
+
+def decomp_calibrate() -> None:
+    """The decomposition check's readings: sound seeds, then planted faults
+    in the card run (the flash softmax scale off by 25%, the decoders'
+    ragged key tile's zero rows counted as keys, d = 72's second column box
+    dropped, the propagation's memories of earlier frames dropped, the
+    memory attention's RoPE dropped); then
+    the scale fault against phase 3's flash checks at the new widths."""
+    from mimo_tpu_torch.decomp import sam2 as S2
+    from mimo_tpu_torch.ops import flash_attention as FA
+    from mimo_tpu_torch.ops import attention as AT
+    memory_attention = S2.memory_attention
+    flash = AT.flash_attention_nt
+
+    def zero_keys_counted(q, k, v, heads):
+        # a ragged key tile's zero-filled rows taken as keys: the decoders'
+        # 7 prompt tokens padded with zero keys and values to one 128-key
+        # tile
+        if k.shape[1] < 128:
+            pad = (0, 0, 0, 128 - k.shape[1])
+            k = torch.nn.functional.pad(k, pad)
+            v = torch.nn.functional.pad(v, pad)
+        return flash(q, k, v, heads)
+
+    def second_box_dropped(q, k, v, heads):
+        # d = 72's second 64-column box lost: each head's q and k columns
+        # 64-71 read as zeros (Hiera's global blocks)
+        d = q.shape[2] // heads
+        if d == 72:
+            keep = (torch.arange(q.shape[2], device=q.device) % d < 64)
+            q, k = q * keep.to(q.dtype), k * keep.to(k.dtype)
+        return flash(q, k, v, heads)
+
+    def scale_fault():
+        return patched(FA, "LOG2E", FA.LOG2E * 1.25)
+
+    faults = {
+        "flash scale x1.25": scale_fault,
+        "zero keys of the ragged tile counted": lambda: patched(
+            AT, "flash_attention_nt", zero_keys_counted),
+        "d = 72's second box dropped": lambda: patched(
+            AT, "flash_attention_nt", second_box_dropped),
+        "recent memories dropped": lambda: patched(
+            S2, "memory_attention",
+            lambda p, cfg, f, fp, mem, mp, ptr: memory_attention(
+                p, cfg, f, fp, mem[:1], mp[:1], ptr)),
+        "RoPE dropped": lambda: patched(
+            S2, "_apply_rope", lambda x, cos, sin: x),
+    }
+    log("== calibrate: SAM2 propagate, card bf16 vs CPU fp32 on each "
+        "call's own inputs")
+    for name, seed, fault in ([(f"sound seed {s}", s, None)
+                               for s in (7, 8, 9, 10, 11)]
+                              + [(f"fault '{n}' seed 7", 7, f)
+                                 for n, f in faults.items()]):
+        errors, _ = decomp_agreement_error(seed, fault)
+        log(f"  {name}: " + "; ".join(
+            f"{m} max_abs_err={mx:.4g} mean_abs_err={mean:.4g}"
+            for m, (mx, mean) in errors.items()))
+    # phase 3's d = 72 (q|k|v views) and d = 16 (7 keys) checks, at B = 1,
+    # under the scale fault
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    for d, sk, views in ((72, 4096, True), (16, 7, False)):
+        inner = 8 * d
+        x = torch.randn((1, 4096, 3 * inner), generator=gen, device="cuda")
+        q = (x[..., :inner] * 2).bfloat16()
+        k, v = ((x[..., inner:2 * inner] * 2).bfloat16(),
+                x[..., 2 * inner:].bfloat16())
+        if views:
+            qkv = torch.cat([q, k, v], -1)
+            q, k, v = qkv.split(inner, dim=-1)
+        else:
+            k, v = k[:, :sk].contiguous(), v[:, :sk].contiguous()
+        want = FA.attention_plain(q, k, v, 8).float()
+        with scale_fault():
+            got = FA.flash_attention_nt(q, k, v, 8).float()
+        err = (got - want).abs()
+        excess = float((err - (2e-2 + 2e-2 * want.abs())).max())
+        log(f"  fault 'flash scale x1.25' in phase 3's d={d} Sk={sk} check: "
+            f"max_abs_err={float(err.max()):.4g} (tolerance 0.02 + "
+            f"0.02*|ref|): {'caught' if excess > 0 else 'NOT caught'}")
 
 
 def _leaves(tree):
@@ -1314,6 +1656,9 @@ def main() -> None:
     animate_launches, runner = phase_main_path()
     launches = {"animate": animate_launches, "tool": ablation_launches,
                 "edit": phase_edit(runner)}
+    del runner
+    torch.cuda.empty_cache()
+    launches["decomp"] = phase_decomp()
     kernels = []
     for e in entries + ablation:
         kernels.append({"name": e["name"], "route": e["route"],

@@ -4,7 +4,8 @@ python -m mimo_tpu_torch <command> ...
   animate   character image animation from an sdc template
   edit      video character replacement with full compositing
   serve     gradio web app (if gradio is installed)
-  decomp    in-the-wild video -> template extraction (not ported yet)
+  decomp    in-the-wild video -> template extraction (stages 1-2 ported,
+            not the command yet)
   bench     headline benchmark (not ported yet)
 
 animate and edit run on a CUDA device.
@@ -13,8 +14,13 @@ animate and edit run on a CUDA device.
 import sys
 
 NOT_PORTED = {
-    "decomp": "decomposition is not ported yet (ROADMAP.md, Queue 1 "
-              "item 4); use `python -m mimo_tpu decomp`",
+    "decomp": "decomposition is ported only up to its human-tracking "
+              "stages (mimo_tpu_torch.decomp: get_first_mask, get_human, "
+              "get_bbox; profile them with `python -m "
+              "mimo_tpu_torch.tools.profile_decomp --stages track`); pose, "
+              "motion, background, occlusion and the command's `run` are "
+              "not ported yet (ROADMAP.md, Queue 1 item 4); use `python -m "
+              "mimo_tpu decomp`",
     "bench": "the benchmark is not ported yet (ROADMAP.md, Queue 1 item 1: "
              "bench.py imports jax); use `python bench.py` with JAX",
 }

@@ -9,12 +9,13 @@ the port has no transposed compute and no block arguments.
 
 Each wrapper takes the plain version for CPU tensors only. For a CUDA tensor
 it launches the kernel or raises. ``<wrapper>.launches`` counts kernel
-launches.
+launches; ``flash_attention_nt.widths`` counts them by head width.
 """
 
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -111,6 +112,7 @@ def flash_attention_nt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_plain(q, k, v, heads)
     out = _flash_cuda(q, k, v, None, None, heads)
     flash_attention_nt.launches += 1
+    flash_attention_nt.widths[q.shape[2] // heads] += 1
     return out
 
 
@@ -127,4 +129,5 @@ def flash_attention_nt_bank(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_nt.launches = 0
+flash_attention_nt.widths = Counter()
 flash_attention_nt_bank.launches = 0

@@ -30,6 +30,8 @@ SELF_CASES = [
     (2, 40, 72, 2, 8, 16, 32),     # ragged both
     (1, 64, 64, 4, 8, 32, 64),     # exact blocks
     (1, 24, 128, 1, 16, 24, 128),  # single blocks
+    (2, 48, 7, 8, 16, 16, 8),      # SAM / SAM2 decoder i2t: 7 keys, d=16
+    (1, 40, 72, 8, 72, 16, 32),    # Hiera-L stage-3 global blocks: d=72
 ]
 # (b, sq, sk1, sk2, heads, d, bq, bk)
 BANK_CASES = [

@@ -28,7 +28,13 @@ SLICE_MODULES = [
     "mimo_tpu_torch.weights.convert", "mimo_tpu_torch.tools.compare_sass",
     "mimo_tpu_torch.entry.edit", "mimo_tpu_torch.weights.checkpoint",
     "mimo_tpu_torch.utils.profiling", "mimo_tpu_torch.serving.app",
-    "mimo_tpu_torch.__main__",
+    "mimo_tpu_torch.__main__", "mimo_tpu_torch.decomp.vit",
+    "mimo_tpu_torch.decomp.hiera", "mimo_tpu_torch.decomp.sam",
+    "mimo_tpu_torch.decomp.sam2", "mimo_tpu_torch.decomp.vitpose",
+    "mimo_tpu_torch.decomp.detector", "mimo_tpu_torch.decomp.matting",
+    "mimo_tpu_torch.decomp.pipeline", "mimo_tpu_torch.decomp.factory",
+    "mimo_tpu_torch.ops.connected_components",
+    "mimo_tpu_torch.tools.profile_decomp",
 ]
 
 

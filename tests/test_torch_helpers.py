@@ -20,10 +20,11 @@ def set_fp32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def bridge_params(jax_tree):
-    """JAX parameter tree -> the port's tree, through the flat format."""
+def bridge_params(jax_tree, kind=None):
+    """JAX parameter tree -> the port's tree, through the flat format
+    (``kind``: a decomposition tree, see ``bridge.TRANSPOSED_CONVS``)."""
     flat = flatten_tree(jax.tree.map(np.asarray, jax_tree))
-    return bridge.from_flat(flat)
+    return bridge.from_flat(flat, kind=kind)
 
 
 def tt(x) -> torch.Tensor:
