@@ -63,7 +63,9 @@ Phases, in order; any failure exits non-zero:
    and reduced depth at 512x512, 10 frames so the memory ring fills and
    wraps, card bf16 + flash against the CPU fp32 plain path: the frames'
    encoding, the memory attention and the mask decoder, each call taken
-   again on the CPU from the card call's own inputs), then the
+   again on the CPU from the card call's own inputs, and one Hiera-L
+   global block's d = 72 flash attention against the fp32 plain attention
+   on its own q, k, v, which sees a x1.25 softmax scale), then the
    decomposition half's track stage at full width through
    ``mimo_tpu_torch.tools.profile_decomp`` (SAM ViT-H, SAM2 Hiera-L and
    ViTPose-H, seeded random bf16 weights) on a 48-frame 720x480 clip drawn
@@ -74,13 +76,34 @@ Phases, in order; any failure exits non-zero:
    480) bool masks, frame 0 equal to the prompt frame's mask, (48, 4)
    boxes inside the frame, and the timed run equal in every bit to the
    warm-up run before it (each encodes the clip);
-8. the kernels' JSON line (``launches`` from the run of the entry's
+8. decomp pose + motion: a small-input agreement check (the card against
+   the CPU fp32 plain path on the card call's own inputs: HMR2 at real head
+   widths and 2 backbone blocks, ``lbs`` of the surface SMPL-H, the z-buffer
+   render at 720x480: alpha equal off the faces' edges, rgb and depth
+   within 1e-5), then through ``mimo_tpu_torch.tools.profile_decomp`` the
+   pose stage (ViTPose-H, flip test) and the motion stage (ViTPose-H, HMR2,
+   HaMeR, the fuse, ``lbs`` of the surface SMPL-H, the render, and HaMeR on
+   keypoints that find both hands) at full width on phase 7's clip and
+   boxes, seeded random bf16 weights (the pose heads' updates scaled by
+   0.1 and HMR2's camera at its mean, so the posed body is framed in its
+   box), each an untimed pass then the timed one; prints each call's time,
+   the host crop time, the raster's candidate tests and time a frame, the
+   peak memory and the kernel launches (none of the 15 kernels is on this
+   path); checks (48, 133, 3) keypoints, a (48, 720, 480, 3) uint8 sdc
+   whose body covers 5-50% of every frame with its centroid inside the
+   frame's person box, HaMeR crops > 0 and the timed run equal in every
+   bit to the untimed one; then renders the template framed as
+   ``tools/profile_raster.py`` frames it (it must cover 5-50% of the frame)
+   and a mesh of random vertex triples (``gen_smpl``'s faces), printing
+   their time, candidate tests and memory;
+9. the kernels' JSON line (``launches`` from the run of the entry's
    ``path``: phase 5, 6, 7 or the tool's run of phase 4), then the last
    line: {"ok": true, "device": {...}}.
 
-``python3 chip_smoke.py --calibrate`` runs phases 1-2, then the readings
-that place the limits of the two small-input agreement checks (sound seeds
-and planted faults), and prints no result line. ``python3 chip_smoke.py
+``python3 chip_smoke.py --calibrate [main] [decomp] [motion]`` runs phases
+1-2, then the readings that place the limits of the small-input agreement
+checks of phases 5, 7 and 8 (sound seeds and planted faults; all three
+without a section named), and prints no result line. ``python3 chip_smoke.py
 --kernels`` runs phases 1-3 and the GEMM tile core's breakdown (each launch
 of the FFN and of q|k|v timed alone, beside variants that drop one piece
 of the work and beside torch.matmul of the same products), then prints
@@ -92,6 +115,7 @@ are random, drawn from a seeded torch.Generator.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -1282,6 +1306,11 @@ DECOMP_AGREE_FRAMES = 10
 # that pick is an argmax, and at a near-tie bf16 may tip it the other way
 # (a sound seed of five did, at its first tracked frame: PERF.md)
 DECOMP_MODULES = ("encode_frames", "memory_attention", "decode_masks")
+# and, for a reading with less bf16 noise than the encoder's output, one
+# Hiera-L global block's attention (the first d = 72 flash call of the
+# card run: 8 frames x 32x32 tokens, 8 heads) against the fp32 plain
+# attention on the CPU on that call's own q, k, v
+GLOBAL_ATTENTION = "global_attention"
 
 
 def decomp_agreement_error(seed: int, fault=None):
@@ -1293,8 +1322,9 @@ def decomp_agreement_error(seed: int, fault=None):
     reading holds that module's error alone and no difference carries from
     one step to the next. ``fault`` (a context manager factory) plants a
     known error in the card run only. Returns {module: (max, mean)
-    absolute error over its calls} and the card run's flash launches by
-    head width."""
+    absolute error over its calls}, with one Hiera-L global block's flash
+    attention (``GLOBAL_ATTENTION``) held to the fp32 plain attention on
+    its own inputs, and the card run's flash launches by head width."""
     from collections import Counter
     from mimo_tpu_torch.decomp import sam2 as S2
     from mimo_tpu_torch.ops import flash_attention as FAK
@@ -1311,6 +1341,18 @@ def decomp_agreement_error(seed: int, fault=None):
     points = np.stack([xs, ys], -1).astype(np.float32)
 
     calls = {name: [] for name in DECOMP_MODULES}
+    from mimo_tpu_torch.ops import attention as AT
+    global_calls = []
+
+    def recording(flash):
+        """``flash`` (the dispatch's kernel, a planted fault included),
+        keeping its first d = 72 call."""
+        def recorded(q, k, v, heads):
+            out = flash(q, k, v, heads)
+            if not global_calls and q.shape[2] // heads == 72:
+                global_calls.append(((q, k, v, heads), out))
+            return out
+        return recorded
 
     def recorder(name):
         inner = getattr(S2, name)
@@ -1326,6 +1368,8 @@ def decomp_agreement_error(seed: int, fault=None):
             contextlib.ExitStack() as stack:
         for name in DECOMP_MODULES:
             stack.enter_context(patched(S2, name, recorder(name)))
+        stack.enter_context(patched(AT, "flash_attention_nt",
+                                    recording(AT.flash_attention_nt)))
         pred = S2.SAM2VideoPredictor(cuda_params, cfg)
         pred.init_state(frames)
         pred.add_new_points(0, points, np.ones(5, np.int32))
@@ -1343,6 +1387,10 @@ def decomp_agreement_error(seed: int, fault=None):
         errors[name] = (max(float(e.max()) for e in errs),
                         float(sum(e.sum() for e in errs)
                               / sum(e.numel() for e in errs)))
+    (q, k, v, heads), out = global_calls[0]
+    err = (out.float().cpu() - FAK.attention_plain(
+        q.float().cpu(), k.float().cpu(), v.float().cpu(), heads)).abs()
+    errors[GLOBAL_ATTENTION] = (float(err.max()), float(err.mean()))
     return errors, dict(widths)
 
 
@@ -1382,7 +1430,8 @@ def sharpen_attention(tree, factor: float = 5.0):
 # chip_smoke.py --calibrate`` (readings in PERF.md).
 DECOMP_TOLS = {"encode_frames": (0.6, 0.08),
                "memory_attention": (0.15, 0.01),
-               "decode_masks": (0.04, 0.004)}
+               "decode_masks": (0.04, 0.004),
+               GLOBAL_ATTENTION: (0.05, 0.004)}
 
 
 def small_decomp_agreement() -> None:
@@ -1424,13 +1473,14 @@ def phase_decomp():
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     params = {name: FA.load_params(None, name, cfg, dev, torch.bfloat16, 0)
-              for name, cfg in zip(FA.BUNDLES, FA.configs(tiny=False))}
+              for name, cfg in zip(FA.BUNDLES, FA.configs(tiny=False))
+              if name in PD.STAGE_BUNDLES["track"]}
     object_everywhere(params["sam2"])
     models = FA.build_decomp_models(params=params)
     torch.cuda.synchronize()
     log(f"  SAM ViT-H, SAM2 Hiera-L, ViTPose-H: " + ", ".join(
         f"{sum(x.numel() for x in _leaves(params[n])) / 1e6:.1f} M"
-        for n in FA.BUNDLES) + f" params (bf16), random init "
+        for n in params) + f" params (bf16), random init "
         f"{time.perf_counter() - t0:.1f} s")
     frames, seeds, boxes = PD.synth_frames(*PD.CLIP)
     first_run, bboxes1, _ = PD.warm_up(models, frames, seeds, boxes)
@@ -1479,6 +1529,279 @@ def phase_decomp():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the decomposition's pose and motion stages
+# ---------------------------------------------------------------------------
+
+
+def motion_agreement_config():
+    """HMR2 at its real head widths (6 layers of 1024, 8 heads of 64) on a
+    ViT-H backbone (1280 wide, 16 heads, 256x192) cut to 2 blocks, with two
+    IEF iterations, so a dropped update shows."""
+    from mimo_tpu_torch.decomp import hmr as HM
+    cfg = HM.HMRConfig()
+    return dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, depth=2),
+        ief_iters=2)
+
+
+MOTION_AGREE_CROPS = 4
+# the render check's limits (fixed; fp32 on both sides): alpha equal but at
+# pixel centres within EDGE_TOL (barycentric, fp64) of a face's edge, rgb and
+# depth within RENDER_TOL where both cover
+EDGE_TOL, RENDER_TOL = 1e-4, 1e-5
+
+
+def framed_template(smpl, height: int, width: int):
+    """SMPL-H's template framed as tools/profile_raster.py frames it:
+    centred, 0.7 of the frame tall, 2 m in front of a focal of twice its
+    pixels a metre; seeded vertex colours in [0.2, 1]. Returns (verts (V,
+    3), focal, center, colors)."""
+    v = smpl.v_template - smpl.v_template.mean(0)
+    scale = 0.7 * height / float(v[:, 1].max() - v[:, 1].min())
+    v = v.clone()
+    v[:, 2] += 2.0
+    colors = np.random.default_rng(0).uniform(
+        0.2, 1.0, (v.shape[0], 3)).astype(np.float32)
+    return v, scale * 2.0, [width / 2.0, height / 2.0], colors
+
+
+def near_edges(verts, faces, focal, center, height: int, width: int):
+    """(T, H, W) bool: pixel centres within EDGE_TOL (barycentric, in fp64)
+    of an edge of a face that could cover them (the renderer's candidate
+    tests, their weights recomputed in fp64)."""
+    from mimo_tpu_torch.decomp import renderer as R
+    t, f = verts.shape[0], faces.shape[0]
+    hw = height * width
+    dev = verts.device
+    tri = R.project(verts.double(), torch.as_tensor(
+        focal, dtype=torch.float64, device=dev), torch.as_tensor(
+        center, dtype=torch.float64, device=dev))[:, faces].reshape(-1, 3, 2)
+    near = torch.zeros(t * hw, dtype=torch.bool, device=dev)
+    for item, pix, _, _, _, _ in R.candidates(
+            verts, faces, focal, center, height=height, width=width):
+        (x0, y0), (x1, y1), (x2, y2) = tri[item].permute(1, 2, 0)
+        px = (pix % width).double() + 0.5
+        py = ((pix % hw) // width).double() + 0.5
+        area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+        w0 = ((x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)) / area
+        w1 = ((x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)) / area
+        lo = torch.minimum(torch.minimum(w0, w1), 1 - w0 - w1)
+        near[pix[lo.abs() <= EDGE_TOL]] = True
+    return near.reshape(t, height, width)
+
+
+def motion_agreement_error(seed: int, fault=None):
+    """The card against the CPU fp32 plain path, each on the card call's own
+    inputs: HMR2 (``motion_agreement_config``, the card's bf16 weights and
+    crops) -> (max, mean) of the rotations, betas and camera; ``lbs`` of the
+    surface SMPL-H at 4 random poses (fp32 on both sides) -> the vertices'
+    (max, mean); the render (fp32 on both sides) of the framed template and
+    two of those posed bodies at 720x480 -> alpha pixels that differ off the
+    edges, and the largest rgb and depth difference where both cover.
+    ``fault`` plants a known error in the card's HMR2 run only."""
+    from mimo_tpu_torch.decomp import hmr as HM
+    from mimo_tpu_torch.decomp import renderer as R
+    from mimo_tpu_torch.decomp import smpl as SM
+    cfg = motion_agreement_config()
+    params = HM.hmr_init(torch.Generator().manual_seed(seed), cfg)
+    cuda_params = _map_tree(params, lambda t: t.to("cuda", torch.bfloat16))
+    cpu_params = _map_tree(cuda_params, lambda t: t.to("cpu", torch.float32))
+    rng = np.random.default_rng(seed)
+    crops = torch.from_numpy(rng.standard_normal(
+        (MOTION_AGREE_CROPS, 256, 192, 3)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    with fault() if fault is not None else contextlib.nullcontext():
+        got = HM.hmr_forward(cuda_params, cfg, crops)
+    want = HM.hmr_forward(cpu_params, cfg, crops.float().cpu())
+    errors = {}
+    for k in ("pose_rotmats", "betas", "cam"):
+        e = (got[k].float().cpu() - want[k]).abs()
+        errors["hmr " + k] = (float(e.max()), float(e.mean()))
+
+    smpl = SM.surface_smplh(0)
+    betas = torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32))
+    pose = torch.from_numpy((rng.standard_normal((4, 52, 3)) * 0.3).astype(
+        np.float32))
+    vc, _ = SM.lbs(smpl.to("cuda"), betas.cuda(), pose.cuda())
+    e = (vc.cpu() - SM.lbs(smpl, betas, pose)[0]).abs()
+    errors["lbs verts"] = (float(e.max()), float(e.mean()))
+
+    h, w = 720, 480
+    tpl, focal, center, colors = framed_template(smpl, h, w)
+    posed = vc[:2] - vc[:2].mean(1, keepdim=True) + torch.tensor(
+        [0.0, 0.0, 2.0], device="cuda")
+    verts = torch.cat([tpl.cuda()[None], posed])
+    faces = torch.from_numpy(smpl.faces)
+    rc = R.render_frames(verts, faces, colors, focal, center, height=h,
+                         width=w)
+    rw = R.render_frames(verts.cpu(), faces, colors, focal, center,
+                         height=h, width=w)
+    near = near_edges(verts, faces.cuda(), focal, center, h, w).cpu()
+    (rgb_c, a_c, d_c), (rgb_w, a_w, d_w) = [[x.cpu() for x in r]
+                                            for r in (rc, rw)]
+    both = (a_c > 0) & (a_w > 0)
+    errors["render alpha off-edge"] = (
+        int(((a_c != a_w) & ~near).sum()), int((a_c != a_w).sum()))
+    errors["render rgb, depth"] = (
+        float((rgb_c - rgb_w).abs().amax(-1)[both].max()),
+        float((d_c - d_w).abs()[both].max()))
+    return errors
+
+
+# The limits of the HMR2 and lbs readings, (max, mean), sit between the
+# sound seeds and the planted faults of ``python3 chip_smoke.py --calibrate
+# motion`` (readings in PERF.md); the render's are fixed.
+MOTION_TOLS = {"hmr pose_rotmats": (0.45, 0.03), "hmr betas": (0.3, 0.1),
+               "hmr cam": (0.2, 0.08), "lbs verts": (1e-5, 1e-6)}
+
+
+def small_motion_agreement() -> None:
+    errors = motion_agreement_error(7)
+    log(f"  HMR2 ({MOTION_AGREE_CROPS} crops, real head widths, 2 backbone "
+        f"blocks, 2 IEF iterations), lbs (surface SMPL-H, 4 poses) and the "
+        f"render (3 frames of 720x480), card vs CPU fp32 on the card call's "
+        f"own inputs:")
+    bad = []
+    for name, (mx, mean) in errors.items():
+        if name == "render alpha off-edge":
+            ok = mx == 0
+            log(f"    {name}: {mx} pixels ({mean} within {EDGE_TOL} of an "
+                f"edge) (tolerance 0) {'ok' if ok else 'FAIL'}")
+        elif name == "render rgb, depth":
+            ok = mx <= RENDER_TOL and mean <= RENDER_TOL
+            log(f"    {name} where both cover: max_abs_err={mx:.4g}, "
+                f"{mean:.4g} (tolerance {RENDER_TOL}) "
+                f"{'ok' if ok else 'FAIL'}")
+        else:
+            tmx, tmean = MOTION_TOLS[name]
+            ok = mx <= tmx and mean <= tmean
+            log(f"    {name}: max_abs_err={mx:.4g} mean_abs_err={mean:.4g} "
+                f"(tolerance max <= {tmx}, mean <= {tmean}) "
+                f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"the card's motion stage disagrees with the "
+                             f"CPU reference in {bad}")
+
+
+def framed_bodies(params):
+    """Random heads pose every joint ≈ 1.4 rad from rest, and the synthetic
+    SMPL-H's seeded skinning weights blend all 52 joints at every vertex,
+    so such a body shrinks to 0-1% of a frame; the camera head adds a
+    random shift. Scale HMR2's and HaMeR's pose updates by 0.1 (≈ 0.15 rad
+    a joint) and zero HMR2's camera updates, so that every frame's camera
+    is the mean (0.9, 0, 0): the body ≈ 0.77 of its person box tall,
+    centred on the box (≈ 10-13% of the frame)."""
+    for name in ("hmr", "hamer"):
+        for leaf in params[name]["dec_pose"].values():
+            leaf.mul_(0.1)
+    for leaf in params["hmr"]["dec_cam"].values():
+        leaf.zero_()
+    return params
+
+
+def phase_motion():
+    """The decomposition half's pose and motion stages at full width through
+    tools/profile_decomp.py: ViTPose-H (flip test) over the 48-frame 720x480
+    clip's known boxes, then ViTPose-H, HMR2 and HaMeR (seeded random bf16
+    weights, ``framed_bodies``), the fuse and skinning of the surface
+    SMPL-H and the z-buffer render, and HaMeR on keypoints that find both
+    hands; each stage an untimed pass then the timed one, which must give
+    equal bits. The sdc must cover 5-50% of every frame, centred inside
+    its person box. Then the framed template's render and a
+    random-topology mesh's. Returns the launch counts of the stages' four
+    passes (no kernel of the 15 is on this path)."""
+    log("== phase 8: decomp pose + motion")
+    small_motion_agreement()
+    from mimo_tpu_torch.decomp import factory as FA
+    from mimo_tpu_torch.decomp import renderer as R
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    t, h, w = PD.CLIP
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = {name: FA.load_params(None, name, cfg, dev, torch.bfloat16, 0)
+              for name, cfg in zip(FA.BUNDLES, FA.configs(tiny=False))
+              if name in PD.STAGE_BUNDLES["motion"]}
+    models = FA.build_decomp_models(params=framed_bodies(params))
+    est = models.estimate_motion.__self__
+    torch.cuda.synchronize()
+    log(f"  ViTPose-H, HMR2, HaMeR: " + ", ".join(
+        f"{sum(x.numel() for x in _leaves(params[n])) / 1e6:.1f} M"
+        for n in params) + f" params (bf16); surface SMPL-H "
+        f"{est.smpl_model.num_verts} vertices, {len(est.smpl_model.faces)} "
+        f"faces, {est.smpl_model.num_joints} joints; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    frames, masks, boxes = PD.synth_frames(*PD.CLIP)
+    counters = reset_counts()
+    pose = PD.run_stage("pose", models, frames, masks, boxes)
+    motion = PD.run_stage("motion", models, frames, masks, boxes)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  kernel launches in the two stages' four passes (untimed and "
+        f"timed each): {launches} (ViT-H attends over 192 tokens, under "
+        f"FLASH_MIN_Q)")
+
+    kpts = pose["out"]
+    sdc, hands, crops = motion["out"]
+    same = (np.array_equal(kpts, pose["warm_up"])
+            and np.array_equal(sdc, motion["warm_up"][0]))
+    covered = sdc.max(-1) > 0
+    share = covered.reshape(t, -1).mean(1)
+    ys, xs = np.mgrid[:h, :w]
+    n = np.maximum(covered.sum((1, 2)), 1)
+    cx, cy = (xs * covered).sum((1, 2)) / n, (ys * covered).sum((1, 2)) / n
+    inside = ((boxes[:, 0] <= cx) & (cx <= boxes[:, 2])
+              & (boxes[:, 1] <= cy) & (cy <= boxes[:, 3]))
+    log(f"  keypoints {kpts.shape}; sdc {sdc.shape} {sdc.dtype}, covered "
+        f"share per frame {share.min():.4f} to {share.max():.4f}, its "
+        f"centroid inside the person box on {int(inside.sum())} of {t} "
+        f"frames; HaMeR crops {crops}; the warm-up run "
+        f"{'equal in every bit' if same else 'DIFFERS'}")
+    if kpts.shape != (t, 133, 3) or not np.isfinite(kpts).all():
+        raise AssertionError(f"keypoints {kpts.shape}")
+    if sdc.shape != (t, h, w, 3) or sdc.dtype != np.uint8:
+        raise AssertionError(f"sdc {sdc.shape} {sdc.dtype}")
+    if not ((0.05 <= share) & (share <= 0.5)).all() or not inside.all():
+        raise AssertionError(f"the sdc's body is not framed: covered share "
+                             f"{share.tolist()}, centroid inside the box "
+                             f"{inside.tolist()}")
+    if crops <= 0 or not all(torch.isfinite(x[s]).all() for x in hands
+                             for s in ("left", "right")):
+        raise AssertionError("HaMeR found no hands on the drawn keypoints")
+    if not same:
+        raise AssertionError("two pose + motion runs differ")
+
+    # the synthetic body framed as tools/profile_raster.py frames it, and a
+    # mesh of random vertex triples (gen_smpl's faces) on the same vertices
+    tpl, focal, center, colors = framed_template(est.smpl_model, h, w)
+    for name, faces in (
+            ("framed template", est.smpl_model.faces),
+            ("random-topology faces", np.random.default_rng(0).integers(
+                0, est.smpl_model.num_verts, (len(est.smpl_model.faces), 3)))):
+        st = {}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, alpha, _ = R.rasterize(tpl.to(dev), torch.from_numpy(faces),
+                                  colors, focal, center, height=h, width=w,
+                                  stats=st)
+        end.record()
+        end.synchronize()
+        share = float(alpha.mean())
+        log(f"  render of the {name}: {start.elapsed_time(end):.2f} ms, "
+            f"{st['tests']} candidate pixel tests ({st['covered']} covered) "
+            f"in {st['chunks']} chunk(s), peak "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.2f} GiB "
+            f"above the models; covers {share:.4f} of the frame")
+        if name == "framed template" and not 0.05 <= share <= 0.5:
+            raise AssertionError(f"the framed template covers {share} of "
+                                 f"the frame")
+    return launches
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the main path (each counts its launches)."""
     from mimo_tpu_torch.ops import ffn as FF
@@ -1513,11 +1836,23 @@ def patched(module, name, value):
         setattr(module, name, old)
 
 
-def calibrate() -> None:
-    """Readings that place the limits of the small-input agreement check:
-    sound runs over several seeds, then runs with a planted fault in the
-    card path (the bank keys dropped from the banked flash attention, the
-    flash softmax scale off by 25%, the motion modules' PE dropped)."""
+def calibrate(sections=()) -> None:
+    """Readings that place the limits of the small-input agreement checks
+    (``sections``: any of "main", "decomp", "motion"; all if empty)."""
+    sections = set(sections) or {"main", "decomp", "motion"}
+    if "main" in sections:
+        main_calibrate()
+    if "decomp" in sections:
+        decomp_calibrate()
+    if "motion" in sections:
+        motion_calibrate()
+
+
+def main_calibrate() -> None:
+    """The main path's agreement check: sound runs over several seeds, then
+    runs with a planted fault in the card path (the bank keys dropped from
+    the banked flash attention, the flash softmax scale off by 25%, the
+    motion modules' PE dropped)."""
     from mimo_tpu_torch.models import unet as U
     from mimo_tpu_torch.ops import attention as AT
     from mimo_tpu_torch.ops import flash_attention as FA
@@ -1542,7 +1877,6 @@ def calibrate() -> None:
         mx, mean = agreement_error(7, fault)
         log(f"  fault '{name}' seed 7: max_abs_err={mx:.4g} mean_abs_err="
             f"{mean:.4g}")
-    decomp_calibrate()
 
 
 def decomp_calibrate() -> None:
@@ -1627,6 +1961,32 @@ def decomp_calibrate() -> None:
             f"0.02*|ref|): {'caught' if excess > 0 else 'NOT caught'}")
 
 
+def motion_calibrate() -> None:
+    """Phase 8's readings: sound seeds, then planted faults in the card's
+    HMR2 (the two 6D columns swapped before Gram-Schmidt, the last IEF
+    update dropped)."""
+    from mimo_tpu_torch.decomp import hmr as HM
+    rot6d, forward = HM.rot6d_to_rotmat, HM.hmr_forward
+    faults = {
+        "rot6d columns swapped": lambda: patched(
+            HM, "rot6d_to_rotmat",
+            lambda x: rot6d(torch.cat([x[..., 3:6], x[..., 0:3]], -1))),
+        "IEF update dropped": lambda: patched(
+            HM, "hmr_forward", lambda p, cfg, crops: forward(
+                p, dataclasses.replace(cfg, ief_iters=cfg.ief_iters - 1),
+                crops)),
+    }
+    log("== calibrate: HMR2, lbs and the render, card vs CPU fp32 on the "
+        "card call's own inputs")
+    for name, seed, fault in ([(f"sound seed {s}", s, None)
+                               for s in (7, 8, 9, 10, 11)]
+                              + [(f"fault '{n}' seed 7", 7, f)
+                                 for n, f in faults.items()]):
+        errors = motion_agreement_error(seed, fault)
+        log(f"  {name}: " + "; ".join(
+            f"{m} {a:.4g} / {b:.4g}" for m, (a, b) in errors.items()))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1644,8 +2004,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     kind = phase_device()
     phase_build()
-    if sys.argv[1:] == ["--calibrate"]:
-        calibrate()
+    if sys.argv[1:2] == ["--calibrate"]:
+        calibrate(sys.argv[2:])
         return
     entries = phase_kernels()
     if sys.argv[1:] == ["--kernels"]:
@@ -1659,6 +2019,8 @@ def main() -> None:
     del runner
     torch.cuda.empty_cache()
     launches["decomp"] = phase_decomp()
+    torch.cuda.empty_cache()
+    launches["motion"] = phase_motion()
     kernels = []
     for e in entries + ablation:
         kernels.append({"name": e["name"], "route": e["route"],

@@ -1,19 +1,26 @@
 """Wire the decomposition models into a ``DecompModels`` bundle.
 
 Counterpart of ``mimo_tpu/decomp/factory.py::build_decomp_models`` for the
-bundles of the human-tracking stages:
+bundles of the ported stages (track, pose, motion):
 
-  sam.npz      SAM ViT-H: the first-frame box segmentation, auto-masks
-  sam2.npz     SAM2 Hiera-L: the video tracker
-  vitpose.npz  ViTPose-H wholebody: the detector's person score and the
-               full-body check
+  sam.npz        SAM ViT-H: the first-frame box segmentation, auto-masks
+  sam2.npz       SAM2 Hiera-L: the video tracker
+  vitpose.npz    ViTPose-H wholebody: the detector's person score, the
+                 full-body check, the pose stage and the motion stage's
+                 hand boxes
+  hmr.npz        HMR2: the body regression of the motion stage
+  hamer.npz      HaMeR: its hand regression
+  smpl.npz/.pkl  SMPL-H: the body model (sdc_info.npy, when present, its
+                 sdc vertex colours)
 
 from a directory of npz bundles in the JAX package's flat format
-(``tools/gen_decomp_weights.py``; the weights bridge turns them into the
-port's trees), or, with no directory, seeded random weights at full width
-(``chip_smoke.py`` and ``tools/profile_decomp.py`` run so). A missing
-bundle leaves its stage disabled. The models run on the card unless the
-caller passes a CPU device.
+(``weights/convert_decomp.py``, ``tools/gen_decomp_weights.py``; the
+weights bridge turns them into the port's trees), or, with no directory,
+seeded random weights at full width and the synthetic surface SMPL-H
+(``smpl.surface_smplh``), as ``chip_smoke.py`` and
+``tools/profile_decomp.py`` run. A missing bundle leaves its stage
+disabled (the motion stage needs hmr and SMPL-H). The models run on the
+card unless the caller passes a CPU device.
 
 The SAM2 video encode is cached between ``track_video`` calls on one clip
 (the occlusion stage tracks every occluder seed through the same frames);
@@ -31,14 +38,17 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from mimo_tpu_torch.decomp import hmr as HMR
+from mimo_tpu_torch.decomp import motion as MO
 from mimo_tpu_torch.decomp import pipeline as DP
 from mimo_tpu_torch.decomp import sam as SAM
 from mimo_tpu_torch.decomp import sam2 as SAM2
+from mimo_tpu_torch.decomp import smpl as SM
 from mimo_tpu_torch.decomp import vitpose as VP
 from mimo_tpu_torch.decomp.detector import PoseScoredDetector
 from mimo_tpu_torch.weights import bridge
 
-BUNDLES = ("sam", "sam2", "vitpose")
+BUNDLES = ("sam", "sam2", "vitpose", "hmr", "hamer")
 
 
 def sample_mask_points(mask: np.ndarray, n: int = 5,
@@ -65,12 +75,14 @@ def clip_key(frames: Sequence[np.ndarray]) -> str:
 
 
 def configs(tiny: bool):
-    """(SAMConfig, SAM2Config, ViTPoseConfig): full width or the tiny test
+    """The configs of ``BUNDLES``, in order: full width, or the tiny test
     configs of ``gen_decomp_weights.py --tiny``."""
     if tiny:
         return (SAM.tiny_sam_config(), SAM2.tiny_sam2_config(),
-                VP.tiny_vitpose_config())
-    return SAM.SAMConfig(), SAM2.SAM2Config(), VP.ViTPoseConfig()
+                VP.tiny_vitpose_config(), HMR.tiny_hmr_config(),
+                HMR.tiny_hmr_config())
+    return (SAM.SAMConfig(), SAM2.SAM2Config(), VP.ViTPoseConfig(),
+            HMR.HMRConfig(), HMR.hamer_config())
 
 
 def load_params(weights_dir: Optional[str], name: str, cfg, device,
@@ -80,14 +92,33 @@ def load_params(weights_dir: Optional[str], name: str, cfg, device,
     directory."""
     if weights_dir is None:
         init = {"sam": SAM.sam_init, "sam2": SAM2.sam2_init,
-                "vitpose": VP.vitpose_init}[name]
+                "vitpose": VP.vitpose_init, "hmr": HMR.hmr_init,
+                "hamer": HMR.hmr_init}[name]
         gen = torch.Generator(device=device).manual_seed(
             seed + BUNDLES.index(name))
         return init(gen, cfg, dtype)
     path = os.path.join(weights_dir, f"{name}.npz")
     if not os.path.exists(path):
         return None
-    return bridge.load_npz(path, device, dtype, kind=name)
+    return bridge.load_npz(path, device, dtype,
+                           kind=name if name in bridge.TRANSPOSED_CONVS
+                           else None)
+
+
+def load_smpl(weights_dir: Optional[str], device, seed: int = 0):
+    """(SMPL-H model, sdc colours or None): ``smpl.npz`` or ``smpl.pkl`` and
+    ``sdc_info.npy`` of ``weights_dir`` (None, None without the model), or
+    the synthetic surface SMPL-H without a directory. fp32."""
+    if weights_dir is None:
+        return SM.surface_smplh(seed, device=device), None
+    for name, load in (("smpl.npz", SM.load_smpl_npz),
+                       ("smpl.pkl", SM.load_smpl_pickle)):
+        path = os.path.join(weights_dir, name)
+        if os.path.exists(path):
+            sdc = os.path.join(weights_dir, "sdc_info.npy")
+            return (load(path, device=device),
+                    np.load(sdc) if os.path.exists(sdc) else None)
+    return None, None
 
 
 def build_decomp_models(weights_dir: Optional[str] = None,
@@ -103,11 +134,12 @@ def build_decomp_models(weights_dir: Optional[str] = None,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_decomp_models: no CUDA device; pass "
                            "device='cpu' to run on the CPU")
-    sam_cfg, sam2_cfg, vp_cfg = configs(tiny)
+    cfgs = dict(zip(BUNDLES, configs(tiny)))
+    sam_cfg, sam2_cfg, vp_cfg = cfgs["sam"], cfgs["sam2"], cfgs["vitpose"]
     if params is None:
         params = {name: load_params(weights_dir, name, cfg, device, dtype,
                                     seed)
-                  for name, cfg in zip(BUNDLES, (sam_cfg, sam2_cfg, vp_cfg))
+                  for name, cfg in cfgs.items()
                   if only is None or name in only}
     models = DP.DecompModels()
 
@@ -143,7 +175,21 @@ def build_decomp_models(weights_dir: Optional[str] = None,
     if params.get("vitpose") is not None:
         models.estimate_pose = lambda frame, bbox: VP.estimate_pose(
             params["vitpose"], vp_cfg, frame, bbox)
+        models.estimate_pose_batch = \
+            lambda frames, bboxes, batch=8: VP.estimate_pose_batch(
+                params["vitpose"], vp_cfg, frames, bboxes, batch)
         if models.automask is not None:
             models.detect_person = PoseScoredDetector(
                 automask=models.automask, estimate_pose=models.estimate_pose)
+
+    if params.get("hmr") is not None:
+        smpl_model, sdc_colors = load_smpl(weights_dir, device, seed)
+        if smpl_model is not None:
+            # the estimator is the bound method's __self__
+            models.estimate_motion = MO.MotionEstimator(
+                vitpose_params=params.get("vitpose"), vitpose_cfg=vp_cfg,
+                hmr_params=params["hmr"], hmr_cfg=cfgs["hmr"],
+                hamer_params=params.get("hamer"), hamer_cfg=cfgs["hamer"],
+                smpl_model=smpl_model, sdc_colors=sdc_colors
+            ).estimate_motion
     return models

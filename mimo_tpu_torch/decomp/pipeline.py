@@ -1,11 +1,12 @@
-"""Template extraction, the human-tracking stages: in-the-wild frames ->
-the first mask -> masks over the clip -> per-frame boxes.
+"""Template extraction, the stages ported so far: in-the-wild frames ->
+the first mask -> masks over the clip -> per-frame boxes -> the rendered
+SMPL-H "sdc" video.
 
 Counterpart of ``mimo_tpu/decomp/pipeline.py``'s ``DecompConfig``,
 ``DecompModels``, status codes and ``VideoProcessor.get_first_mask`` /
-``get_human`` / ``get_bbox``. The models are injected callables
-(``factory.build_decomp_models`` wires them), so the stage logic runs
-without weights. The later stages (motion, background, occlusion) and
+``get_human`` / ``get_bbox`` / ``get_motion``. The models are injected
+callables (``factory.build_decomp_models`` wires them), so the stage logic
+runs without weights. The later stages (background, occlusion) and
 ``run``, which persists every stage to a template directory, are not ported
 yet.
 """
@@ -35,13 +36,14 @@ class DecompConfig:
 
 @dataclass
 class DecompModels:
-    """Injected model callables of the track stage; any None disables its
-    step.
+    """Injected model callables; any None disables its step.
 
     - detect_person(frame) -> (bbox_xyxy, score) or None
     - segment_box(frame, bbox) -> bool mask
     - track_video(frames, seed_mask, seed_frame) -> (T, H, W) bool
     - estimate_pose(frame, bbox) -> (K, 3) keypoints   [full-body check]
+    - estimate_pose_batch(frames, bboxes) -> (T, K, 3)  [the pose stage]
+    - estimate_motion(frames, masks, bboxes) -> (T, H, W, 3) uint8 sdc
     - automask(frame) -> list of {"segmentation": ...}
     """
 
@@ -49,6 +51,8 @@ class DecompModels:
     segment_box: Optional[Callable] = None
     track_video: Optional[Callable] = None
     estimate_pose: Optional[Callable] = None
+    estimate_pose_batch: Optional[Callable] = None
+    estimate_motion: Optional[Callable] = None
     automask: Optional[Callable] = None
 
 
@@ -105,3 +109,10 @@ class VideoProcessor:
                     int(xs.max()) + 1, int(ys.max()) + 1]
             out.append(prev)
         return np.asarray(out, np.int64)
+
+    def get_motion(self, frames, masks, bboxes):
+        """The sdc video (T, H, W, 3) uint8, or None without a motion
+        model."""
+        if self.models.estimate_motion is None:
+            return None
+        return self.models.estimate_motion(frames, masks, bboxes)

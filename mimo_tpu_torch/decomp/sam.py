@@ -33,7 +33,7 @@ from mimo_tpu_torch.decomp.vit import (ViTConfig, _normal, gelu,
                                        tokens_to_grid, vit_apply, vit_init)
 from mimo_tpu_torch.decomp.vitpose import deconv2d, deconv_init
 from mimo_tpu_torch.models import layers as L
-from mimo_tpu_torch.utils.frames import resize_frame
+from mimo_tpu_torch.utils.frames import resize_linear
 
 Params = Dict[str, Any]
 
@@ -281,16 +281,19 @@ class SamPredictor:
         self._scaled = None
 
     def set_image(self, image: np.ndarray) -> None:
-        """image: (H, W, 3) uint8 RGB, its long side resized to the encoder
-        size and padded bottom / right."""
+        """image: (H, W, 3) uint8 RGB, its long side resized (bilinear,
+        OpenCV's INTER_LINEAR, on the device without OpenCV) to the encoder
+        size, normalised and padded bottom / right."""
         s = self.cfg.encoder.img_size[0]
         h, w = image.shape[:2]
         scale = s / max(h, w)
         nh, nw = int(round(h * scale)), int(round(w * scale))
-        resized = resize_frame(image, nw, nh)
-        canvas = np.zeros((s, s, 3), np.float32)
-        canvas[:nh, :nw] = (resized.astype(np.float32) - SAM_MEAN) / SAM_STD
-        px = torch.from_numpy(canvas)[None].to(self.device, self.dtype)
+        resized = resize_linear(image, nw, nh, self.device).float()
+        canvas = torch.zeros((s, s, 3), dtype=torch.float32,
+                             device=self.device)
+        canvas[:nh, :nw] = ((resized - torch.from_numpy(SAM_MEAN).to(
+            self.device)) / torch.from_numpy(SAM_STD).to(self.device))
+        px = canvas[None].to(self.dtype)
         self._embed = encode_image(self.params, self.cfg, px)[0]
         self._orig_size = (h, w)
         self._scaled = (nh, nw)

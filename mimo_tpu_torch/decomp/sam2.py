@@ -52,7 +52,7 @@ from mimo_tpu_torch.decomp.sam import (embed_points, mlp3, mlp3_init,
 from mimo_tpu_torch.decomp.vit import _normal, attention_heads, gelu
 from mimo_tpu_torch.decomp.vitpose import deconv2d, deconv_init
 from mimo_tpu_torch.models import layers as L
-from mimo_tpu_torch.utils.frames import resize_frame
+from mimo_tpu_torch.utils.frames import resize_linear
 
 Params = Dict[str, Any]
 
@@ -436,16 +436,18 @@ class SAM2VideoPredictor:
 
     def init_state(self, frames: List[np.ndarray], enc_chunk: int = 8) -> None:
         """frames: (H, W, 3) uint8 RGB, resized to the square model input
-        and ImageNet-normalised, encoded ``enc_chunk`` frames a call (the
-        last chunk may be shorter: chunks only bound the memory)."""
+        (bilinear, OpenCV's INTER_LINEAR; on the device without OpenCV) and
+        ImageNet-normalised, encoded ``enc_chunk`` frames a call (the last
+        chunk may be shorter: chunks only bound the memory)."""
         s = self.cfg.image_size
         self._orig = frames[0].shape[:2]
+        mean = torch.from_numpy(IMG_MEAN).to(self.device)
+        std = torch.from_numpy(IMG_STD).to(self.device)
         parts = []
         for i in range(0, len(frames), enc_chunk):
-            batch = np.stack([
-                (resize_frame(f, s, s).astype(np.float32) / 255.0 - IMG_MEAN)
-                / IMG_STD for f in frames[i:i + enc_chunk]])
-            px = torch.from_numpy(batch).to(self.device, self.dtype)
+            batch = torch.stack([resize_linear(f, s, s, self.device)
+                                 for f in frames[i:i + enc_chunk]]).float()
+            px = ((batch / 255.0 - mean) / std).to(self.dtype)
             parts.append(encode_frames(self.p, self.cfg, px))
         pos16 = parts[0][3]
         self._feats = tuple(torch.cat([pt[j] for pt in parts])

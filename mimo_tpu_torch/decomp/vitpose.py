@@ -8,7 +8,9 @@ boxes. ``square_crop`` is the port's copy of ``mimo_tpu/decomp/hmr.py``'s
 (the person crop the pose model reads), resizing with torch.
 
 On the track path it scores SAM's person proposals (``detector.py``) and
-rejects half bodies (``pipeline.get_first_mask``).
+rejects half bodies (``pipeline.get_first_mask``); the pose stage runs it
+over the clip (``estimate_pose_batch``), and the motion stage finds the
+hands with it (``motion.py``).
 """
 
 from __future__ import annotations
@@ -234,3 +236,23 @@ def estimate_pose(p: Params, cfg: ViTPoseConfig, frame: np.ndarray,
     half = cs[2] / 2
     box = np.array([[cs[0] - half, cs[1] - half, cs[2], cs[2]]])
     return decode_keypoints(hm.float().cpu().numpy(), box)[0]
+
+
+def estimate_pose_batch(p: Params, cfg: ViTPoseConfig, frames, bboxes,
+                        batch: int = 8) -> np.ndarray:
+    """Whole-clip keypoints (T, K, 3): every frame's person crop cut on the
+    host, the flip-test heatmaps ``batch`` crops a call (a memory bound;
+    the last call may be shorter), one decode of the clip."""
+    leaf = p["final"]["kernel"]
+    crops, boxes_xywh = [], []
+    for f, bb in zip(frames, bboxes):
+        c, cs = square_crop(f, np.asarray(bb), out_size=cfg.backbone.img_size)
+        crops.append(c)
+        half = cs[2] / 2
+        boxes_xywh.append([cs[0] - half, cs[1] - half, cs[2], cs[2]])
+    crops = np.stack(crops)
+    hms = [heatmaps_flip_test(p, cfg, torch.from_numpy(
+        crops[i:i + batch]).to(leaf.device, leaf.dtype))
+        for i in range(0, len(crops), batch)]
+    return decode_keypoints(torch.cat(hms).float().cpu().numpy(),
+                            np.asarray(boxes_xywh, np.float32))

@@ -1,26 +1,33 @@
-"""Per-call profile of the decomposition half's human-tracking stage on the
-card.
+"""Per-call profile of the decomposition half's ported stages on the card.
 
-    python -m mimo_tpu_torch.tools.profile_decomp --stages track \
+    python -m mimo_tpu_torch.tools.profile_decomp --stages track,pose,motion \
         [--weights-dir DIR] [--trace]
 
-The port's counterpart of ``tools/profile_decomp.py``'s ``track`` stage,
-the only stage ported so far: SAM ViT-H, SAM2 Hiera-L and ViTPose-H at full
-width (seeded random bf16 weights without ``--weights-dir``) on the same
-synthetic moving-figure clip (``synth_frames``, 48 frames of 720x480,
-``CLIP``). Random weights reject
-every person, so the gating is bypassed as the JAX tool does: the figure's
-known box on frame 0 prompts SAM (``segment_box`` + ``clean_mask``), SAM2
-tracks the figure's known frame-0 mask forwards and backwards, and
-``get_bbox`` boxes the cleaned masks. One
-``automatic_masks`` call and one ``PoseScoredDetector`` call on frame 0
-follow (the detector's path, run for its cost).
+The port's counterpart of ``tools/profile_decomp.py``'s ``track``, ``pose``
+and ``motion`` stages, at full width (seeded random bf16 weights and the
+synthetic surface SMPL-H without ``--weights-dir``) on the same synthetic
+moving-figure clip (``synth_frames``, 48 frames of 720x480, ``CLIP``):
 
-After one untimed warm-up pass, prints each call's time (CUDA events
-around it; host work inside it counts), the peak device memory, the flash
-kernel's launches by head width and the card's name and power limit;
-``--trace`` adds the top kernels of one more pass by device time
-(torch.profiler) and the device's idle share.
+- track: SAM ViT-H, SAM2 Hiera-L and ViTPose-H. Random weights reject
+  every person, so the gating is bypassed as the JAX tool does: the
+  figure's known box on frame 0 prompts SAM (``segment_box`` +
+  ``clean_mask``), SAM2 tracks the figure's known frame-0 mask forwards and
+  backwards, and ``get_bbox`` boxes the cleaned masks. One
+  ``automatic_masks`` call and one ``PoseScoredDetector`` call on frame 0
+  follow (the detector's path, run for its cost).
+- pose: ``estimate_pose_batch`` (ViTPose-H, flip test) over the clip's
+  known boxes.
+- motion: ``estimate_motion`` (ViTPose-H, HMR2, HaMeR, the fuse and
+  SMPL-H skinning, the z-buffer render) over the clip's known boxes; then
+  HaMeR again through ``hand_params`` on keypoints drawn so that both hands
+  are found on every frame (random weights may find none).
+
+Each stage runs once untimed, then timed: each model call's time (CUDA
+events around it; host work inside it counts), the host crop time apart
+(``square_crop``, wall clock), the raster's candidate pixel tests a frame,
+the peak device memory, the flash kernel's launches by head width and the
+card's name and power limit; ``--trace`` adds the top kernels of one more
+track pass by device time (torch.profiler) and the device's idle share.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ import torch
 
 from mimo_tpu_torch.tools.timing import card_line
 
-STAGES = ("track",)
+STAGES = ("track", "pose", "motion")
+# the bundles each stage needs
+STAGE_BUNDLES = {"track": {"sam", "sam2", "vitpose"}, "pose": {"vitpose"},
+                 "motion": {"vitpose", "hmr", "hamer"}}
 CLIP = (48, 720, 480)               # frames, height, width
 
 
@@ -102,7 +112,7 @@ def instrumented(models, times: Dict[str, List[float]]):
     patch(SAM.SamPredictor, "decode", "sam decode (a prompt batch)")
     patch(SAM, "nms_stats", "sam nms_stats")
     patch(SAM2.SAM2VideoPredictor, "init_state",
-          "sam2 init_state (host resize + encode)")
+          "sam2 init_state (resize + encode)")
     patch(SAM2, "encode_frames", "sam2 encode_frames (a chunk)")
     patch(SAM2.SAM2VideoPredictor, "propagate_in_video",
           "sam2 propagate_in_video (a direction)")
@@ -133,14 +143,15 @@ def track_stage(models, frames, seed_masks, boxes, clip_id=None):
     return masks, DP.VideoProcessor.get_bbox(masks), first
 
 
-def build(weights_dir=None):
-    """The track stage's models (SAM, SAM2, ViTPose) on the card in bf16."""
+def build(weights_dir=None, stages=("track",)):
+    """The models of ``stages`` on the card in bf16."""
     from mimo_tpu_torch.decomp.factory import build_decomp_models
     if not torch.cuda.is_available():
         raise SystemExit("profile_decomp: needs a CUDA device")
     t0 = time.perf_counter()
     models = build_decomp_models(weights_dir, dtype=torch.bfloat16,
-                                 only={"sam", "sam2", "vitpose"})
+                                 only=set().union(*(STAGE_BUNDLES[s]
+                                                    for s in stages)))
     torch.cuda.synchronize()
     print(f"models built in {time.perf_counter() - t0:.1f} s ("
           f"{weights_dir or 'seeded random weights at full width, bf16'})",
@@ -195,6 +206,123 @@ def run(models, frames, seed_masks, boxes) -> Dict[str, object]:
                 automask=len(auto), detector=det)
 
 
+def host_timed(times: Dict[str, List[float]], name: str, fn: Callable):
+    """Wrap a host function so each call's wall time (ms) lands in
+    times[name]."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+@contextlib.contextmanager
+def instrumented_motion(times: Dict[str, List[float]]):
+    """Within: the pose and motion stages' model calls land their CUDA-event
+    times in ``times`` (HMR2 and HaMeR apart), the host crops their wall
+    time."""
+    from mimo_tpu_torch.decomp import hmr as HM
+    from mimo_tpu_torch.decomp import motion as MO
+    from mimo_tpu_torch.decomp import renderer as REND
+    from mimo_tpu_torch.decomp import smpl as SM
+    from mimo_tpu_torch.decomp import vitpose as VP
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (VP, "square_crop"), (VP, "heatmaps_flip_test"), (VP, "heatmaps"),
+        (HM, "hmr_forward"), (MO, "fuse_pose_batch"), (SM, "lbs"),
+        (REND, "render_frames"))]
+    forward = HM.hmr_forward
+    hmr2 = timed(times, "hmr2 hmr_forward (the clip's person crops)",
+                 forward)
+    hamer = timed(times, "hamer hmr_forward (the clip's hand crops)",
+                  forward)
+    VP.square_crop = host_timed(times, "host square_crop (a crop)",
+                                VP.square_crop)
+    VP.heatmaps_flip_test = timed(
+        times, "vitpose heatmaps_flip_test (a batch)", VP.heatmaps_flip_test)
+    VP.heatmaps = timed(times, "vitpose heatmaps (a call)", VP.heatmaps)
+    HM.hmr_forward = lambda p, cfg, crops: (
+        hamer if cfg.num_joints == 16 else hmr2)(p, cfg, crops)
+    MO.fuse_pose_batch = timed(times, "fuse_pose_batch", MO.fuse_pose_batch)
+    SM.lbs = timed(times, "smpl lbs (the clip)", SM.lbs)
+    REND.render_frames = timed(times, "render_frames (the clip)",
+                               REND.render_frames)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def hand_keypoints(boxes: np.ndarray, seed: int = 0) -> np.ndarray:
+    """(T, 133, 3) wholebody keypoints whose two hands' 21 points are
+    confident, spread over a patch a tenth of each person box wide at its
+    left and right edges halfway down (the rest unconfident)."""
+    rng = np.random.default_rng(seed)
+    t = len(boxes)
+    k = np.zeros((t, 133, 3))
+    x0, y0, x1, y1 = (boxes[:, i, None].astype(np.float64) for i in range(4))
+    k[..., 0], k[..., 1] = (x0 + x1) / 2, (y0 + y1) / 2
+    for sl, cx in ((slice(-42, -21), x0), (slice(-21, None), x1)):
+        r = (x1 - x0) / 20
+        k[:, sl, 0] = cx + r * rng.uniform(-1, 1, (t, 21))
+        k[:, sl, 1] = (y0 + y1) / 2 + r * rng.uniform(-1, 1, (t, 21))
+        k[:, sl, 2] = 0.9
+    return k
+
+
+def motion_stage(models, frames, masks, boxes):
+    """The sdc video, then HaMeR through ``hand_params`` on keypoints that
+    find both hands on every frame. Returns (sdc, hand rotations, crops)."""
+    sdc = models.estimate_motion(frames, masks, boxes)
+    est = models.estimate_motion.__self__
+    hands = est.hand_params(frames, hand_keypoints(boxes))
+    return sdc, hands, est.hand_crops
+
+
+def run_stage(stage: str, models, frames, masks, boxes) -> Dict[str, object]:
+    """One timed pass of the pose or motion stage after an untimed one;
+    prints the profile and returns what it measured, with both passes'
+    outputs."""
+    call = {"pose": lambda: models.estimate_pose_batch(frames, boxes),
+            "motion": lambda: motion_stage(models, frames, masks, boxes)
+            }[stage]
+    first = call()
+    torch.cuda.synchronize()
+    times: Dict[str, List[float]] = {}
+    torch.cuda.reset_peak_memory_stats()
+    with instrumented_motion(times):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call()
+        end.record()
+        end.synchronize()
+    stage_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t, h, w = len(frames), *frames[0].shape[:2]
+    res = dict(out=out, warm_up=first, times=times, peak_gib=peak,
+               stage_ms=stage_ms)
+    print(f"{card_line()}\n{stage} stage: {t} frames {h}x{w}, "
+          f"{stage_ms:.1f} ms", flush=True)
+    if stage == "motion":
+        est = models.estimate_motion.__self__
+        st = dict(est.render_stats)
+        res.update(render_stats=st, hand_crops=out[2])
+        print(f"  raster: {st['tests'] / t:.0f} candidate pixel tests a "
+              f"frame ({st['covered'] / t:.0f} covered) in {st['chunks']} "
+              f"chunk(s), {times['render_frames (the clip)'][0] / t:.3f} ms "
+              f"a frame; HaMeR crops on the drawn keypoints: {out[2]}",
+              flush=True)
+    for name, ts in times.items():
+        ts_s = sorted(ts)
+        print(f"  {name}: {len(ts)} call(s), mean {np.mean(ts):.2f} ms, "
+              f"median {ts_s[len(ts) // 2]:.2f}, min {ts_s[0]:.2f}, max "
+              f"{ts_s[-1]:.2f}, sum {np.sum(ts):.1f}", flush=True)
+    print(f"  peak device memory {peak:.2f} GiB", flush=True)
+    return res
+
+
 def trace(models, frames, seed_masks, boxes, top: int = 25) -> None:
     """Device time by kernel of one track stage (the clip encoded again)
     and one automask call under torch.profiler: the top kernels, the
@@ -222,22 +350,30 @@ def main(argv=None) -> None:
     ap.add_argument("--stages", default="track",
                     help="comma-separated; ported: " + ", ".join(STAGES))
     ap.add_argument("--weights-dir", default=None,
-                    help="npz bundles (sam, sam2, vitpose); random seeded "
-                         "weights at full width without it")
+                    help="npz bundles (sam, sam2, vitpose, hmr, hamer, "
+                         "smpl); random seeded weights at full width "
+                         "without it")
     ap.add_argument("--trace", action="store_true",
                     help="also profile one track stage + automask and print "
                          "the top kernels by device time")
     args = ap.parse_args(argv)
-    missing = set(args.stages.split(",")) - set(STAGES)
+    stages = args.stages.split(",")
+    missing = set(stages) - set(STAGES)
     if missing:
         raise SystemExit(f"profile_decomp: stage(s) {sorted(missing)} not "
                          f"ported yet (ported: {', '.join(STAGES)})")
-    models = build(args.weights_dir)
+    models = build(args.weights_dir, stages)
     clip = synth_frames(*CLIP)
-    warm_up(models, *clip)
-    run(models, *clip)
-    if args.trace:
-        trace(models, *clip)
+    for stage in STAGES:
+        if stage not in stages:
+            continue
+        if stage == "track":
+            warm_up(models, *clip)
+            run(models, *clip)
+            if args.trace:
+                trace(models, *clip)
+        else:
+            run_stage(stage, models, *clip)
 
 
 if __name__ == "__main__":

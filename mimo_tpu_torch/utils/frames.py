@@ -11,7 +11,8 @@ resize with ``torch.nn.functional.interpolate`` (area when shrinking,
 bilinear with half-pixel centres when growing, the two cv2 modes
 ``resize_frame``'s original picks), where the originals fell back to
 nearest-neighbour sampling. With OpenCV every function computes what its
-original does.
+original does. ``resize_linear`` is the perception models' resize (OpenCV's
+default INTER_LINEAR at any scale), on the card without OpenCV.
 """
 
 from __future__ import annotations
@@ -295,6 +296,23 @@ def _resize_torch(img: np.ndarray, w: int, h: int) -> np.ndarray:
                           align_corners=False)
     y = y[0].permute(1, 2, 0).round().clamp(0, 255)
     return y.to(torch.uint8).numpy()
+
+
+def resize_linear(img: np.ndarray, w: int, h: int,
+                  device=None) -> torch.Tensor:
+    """An (H, W, C) uint8 frame resized to (h, w) with OpenCV's INTER_LINEAR
+    semantics (bilinear, half-pixel centres, no antialiasing when
+    shrinking), as a uint8 tensor on ``device``: ``cv2.resize`` on the host
+    where OpenCV exists; else the frame is uploaded once and resized there
+    by ``F.interpolate`` and rounded (within one level of OpenCV's
+    fixed-point result). The perception models' resize (SAM, SAM2)."""
+    if cv2 is not None:
+        out = cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
+        return torch.from_numpy(out).to(device)
+    x = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    y = F.interpolate(x.permute(2, 0, 1)[None].float(), size=(h, w),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
 
 
 def resize_frame(img: np.ndarray, w: int, h: int) -> np.ndarray:

@@ -188,7 +188,7 @@ def test_dispatcher_routes(cmd, module, monkeypatch):
     assert seen == [["--ref", "r.png"]]
 
 
-@pytest.mark.parametrize("cmd,item", [("decomp", "item 4"),
+@pytest.mark.parametrize("cmd,item", [("decomp", "item 2"),
                                       ("bench", "item 1")])
 def test_dispatcher_not_ported(cmd, item, capsys):
     with pytest.raises(SystemExit) as e:

@@ -35,6 +35,9 @@ SLICE_MODULES = [
     "mimo_tpu_torch.decomp.pipeline", "mimo_tpu_torch.decomp.factory",
     "mimo_tpu_torch.ops.connected_components",
     "mimo_tpu_torch.tools.profile_decomp",
+    "mimo_tpu_torch.weights.convert_decomp", "mimo_tpu_torch.decomp.transforms",
+    "mimo_tpu_torch.decomp.smpl", "mimo_tpu_torch.decomp.hmr",
+    "mimo_tpu_torch.decomp.renderer", "mimo_tpu_torch.decomp.motion",
 ]
 
 

@@ -190,3 +190,36 @@ def test_sam_matting_matches_jax(sam):
         rgba_j, found_j = JM.sam_matting(img, JS.SamPredictor(p, cfg), box)
         assert found == found_j
         np.testing.assert_array_equal(rgba, rgba_j)
+
+
+@pytest.mark.parametrize("opencv", [True, False])
+def test_set_image_shrinks_bilinearly_as_jax(sam, opencv, monkeypatch):
+    """A frame wider than the encoder input (80x96 into 64): the pixels the
+    port encodes equal the reference's (cv2's INTER_LINEAR) with OpenCV,
+    and are within one uint8 level without it (the resize on the tensor's
+    device), and the embeddings follow."""
+    from mimo_tpu_torch.utils import frames as FU
+    cfg, p, pt = sam
+    img = np.random.default_rng(5).integers(0, 256, (80, 96, 3)).astype(
+        np.uint8)
+    pj = JS.SamPredictor(p, cfg)
+    want = []
+    encode = pj._encode
+    pj._encode = lambda params, x: (want.append(np.asarray(x)),
+                                    encode(params, x))[1]
+    pj.set_image(img)
+    if not opencv:
+        monkeypatch.setattr(FU, "cv2", None)
+    got = []
+    encode_t = S.encode_image
+    monkeypatch.setattr(S, "encode_image", lambda params, c, x: (
+        got.append(nn(x)), encode_t(params, c, x))[1])
+    ptp = S.SamPredictor(pt, _port_cfg(cfg))
+    ptp.set_image(img)
+    assert ptp._scaled == pj._scaled == (53, 64)
+    if opencv:
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_allclose(nn(ptp._embed), nn(pj._embed), **TOL)
+    else:
+        levels = [x[0] * S.SAM_STD + S.SAM_MEAN for x in (got[0], want[0])]
+        assert np.abs(levels[0] - levels[1]).max() <= 1 + 1e-3

@@ -204,3 +204,37 @@ def test_track_object_matches_jax(model):
     # OpenCV's INTER_LINEAR where OpenCV is installed); no logit of this
     # seed lies within 1e-3 of 0, so the masks are equal
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("opencv", [True, False])
+def test_init_state_shrinks_bilinearly_as_jax(model, opencv, monkeypatch):
+    """Frames wider and taller than the model input (80x96 into 64x64): the
+    pixels the port encodes equal the reference's (cv2's INTER_LINEAR) with
+    OpenCV, and are within one uint8 level without it (the resize on the
+    tensor's device); the features follow with OpenCV."""
+    from mimo_tpu_torch.utils import frames as FU
+    cfg, p, pt = model
+    frames = _frames(6, 3, h=80, w=96)
+    want, got = [], []
+    encode_j, encode_t = JS2.encode_frames, S2.encode_frames
+    with monkeypatch.context() as m:
+        # eager, so the reference's pixels can be read on their way in
+        m.setattr(JS2.jax, "jit", lambda fn, **kw: fn)
+        m.setattr(JS2, "encode_frames", lambda params, c, x: (
+            want.append(np.asarray(x, np.float64)), encode_j(params, c, x))[1])
+        pj = JS2.SAM2VideoPredictor(p, cfg)
+        pj.init_state(frames)
+    if not opencv:
+        monkeypatch.setattr(FU, "cv2", None)
+    monkeypatch.setattr(S2, "encode_frames", lambda params, c, x: (
+        got.append(nn(x)), encode_t(params, c, x))[1])
+    ptp = S2.SAM2VideoPredictor(pt, port_cfg(cfg))
+    ptp.init_state(frames)
+    if opencv:
+        np.testing.assert_array_equal(got[0], want[0])
+        for a, b in zip(ptp._feats, pj._feats):
+            np.testing.assert_allclose(nn(a), nn(b), **TOL)
+    else:
+        levels = [(x * S2.IMG_STD + S2.IMG_MEAN) * 255 for x in (got[0],
+                                                                 want[0])]
+        assert np.abs(levels[0] - levels[1]).max() <= 1 + 1e-3
