@@ -30,7 +30,9 @@ Phases, in order; any failure exits non-zero:
    equal bits); the flash kernel also at the full main-path batch, beside
    SDPA in interleaved rounds; the temporal attention chain at UNet
    levels 0-3, and its core alone at those levels
-   and at F = 5 and 32 (beside SDPA on (B·S, H, F, d) copies);
+   and at F = 5 and 32 (beside SDPA on (B·S, H, F, d) copies); flash also
+   at the decomposition's widths (d = 72 Hiera-L, d = 16 the decoders,
+   d = 64 DINOv2-L over 2073 tokens with q/k/v column views);
 4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``, the
    production kernel's body at each mode): ``full`` equal in every bit to
    the production kernel (``flash_attention_nt``) at UNet levels 0 and 1
@@ -96,19 +98,38 @@ Phases, in order; any failure exits non-zero:
    ``tools/profile_raster.py`` frames it (it must cover 5-50% of the frame)
    and a mesh of random vertex triples (``gen_smpl``'s faces), printing
    their time, candidate tests and memory;
-9. the kernels' JSON line (``launches`` from the run of the entry's
-   ``path``: phase 5, 6, 7 or the tool's run of phase 4), then the last
-   line: {"ok": true, "device": {...}}.
+9. decomp bk + occ: a small-input agreement check (tiny RAFT + ProPainter
+   ``inpaint_video`` of a 14-frame 16x24 clip, every chunk rule taken, and
+   the tiny DepthAnythingV2, card fp32 against CPU fp32; limits between
+   the sound seeds and two planted faults, flow_warp's x and y swapped and
+   the deformable offsets' tanh bound dropped), then at full width (seeded
+   random bf16 weights) on phase 7's clip and known masks: the background
+   stage (``VideoProcessor.get_bk_recover``: RAFT, flow completion, image
+   propagation, the sliding windows) untimed then timed through
+   ``tools/profile_decomp.py``, printing each phase's time, the peak
+   memory and the back-off ratio, and checking a (48, 720, 480, 3) uint8
+   background, equal bits, a finite composite, the ratio 1.0 and the frame
+   within one level outside the dilated masks; then DINOv2-L's d = 64
+   flash (2073 tokens, q/k/v views) against fp32 plain attention on one
+   block's own inputs, and ``VideoProcessor.get_occ`` with phase 8's sdc
+   twice (equal bits), printing the keyframes, the candidates, the
+   occluders kept, the tracks run and the seconds; d = 64 and d = 16 flash
+   launches must be > 0;
+10. the kernels' JSON line (``launches`` from the run of the entry's
+   ``path``: phase 5, 6 or the tool's run of phase 4; the "decomp" path's
+   flash entries count their head width's launches in phases 7 and 9),
+   then the last line: {"ok": true, "device": {...}}.
 
-``python3 chip_smoke.py --calibrate [main] [decomp] [motion]`` runs phases
-1-2, then the readings that place the limits of the small-input agreement
-checks of phases 5, 7 and 8 (sound seeds and planted faults; all three
-without a section named), and prints no result line. ``python3 chip_smoke.py
---kernels`` runs phases 1-3 and the GEMM tile core's breakdown (each launch
-of the FFN and of q|k|v timed alone, beside variants that drop one piece
-of the work and beside torch.matmul of the same products), then prints
-phase 3's numbers as one JSON line, and no result line: run from another
-tree's checkout, it times that tree's kernels on the same cases.
+``python3 chip_smoke.py --calibrate [main] [decomp] [motion] [bk]`` runs
+phases 1-2, then the readings that place the limits of the small-input
+agreement checks of phases 5, 7, 8 and 9 (sound seeds and planted faults;
+all four without a section named), and prints no result line.
+``python3 chip_smoke.py --kernels`` runs phases 1-3 and the GEMM tile
+core's breakdown (each launch of the FFN and of q|k|v timed alone, beside
+variants that drop one piece of the work and beside torch.matmul of the
+same products), then prints phase 3's numbers as one JSON line, and no
+result line: run from another tree's checkout, it times that tree's kernels
+on the same cases.
 
 Needs no JAX, no OpenCV and no files from outside the repository; weights
 are random, drawn from a seeded torch.Generator.
@@ -374,6 +395,11 @@ def phase_kernels():
         (FA.flash_attention_nt, 8, 72, 8, 4096, 4096, 0, True),
         (FA.flash_attention_nt, 8, 16, 1, 4096, 7, 0, False),
         (FA.flash_attention_nt, 8, 16, 256, 4096, 7, 0, False),
+        # the occlusion stage's DINOv2-L (phase 9): 16 heads of 64 over the
+        # 56x37 grid of a 720x480 frame plus the cls token, 2073 tokens (16
+        # full 128-row query tiles and one of 25), q/k/v column views of
+        # one (1, 2073, 3 * 1024) q|k|v product
+        (FA.flash_attention_nt, 16, 64, 1, 2073, 2073, 0, True),
     ]
     for (wrapper, heads, d, b, sq, sk1, sk2, views), path in (
             [(c, "edit" if c[4] in EDIT_S else "animate")
@@ -409,6 +435,7 @@ def phase_kernels():
             lambda: FA.attention_plain(q, k, v, heads, *bank),
             flash_work(b, heads, d, sq, sk1 + sk2, n_in),
             sdpa_call(q, k, v, heads, bank), path))
+        entries[-1]["width"] = d
 
     # the kernel against SDPA on the same inputs, at UNet levels 0 and 1 on
     # the 2-row subset and at the full main-path batch (the uncond/cond
@@ -1465,6 +1492,7 @@ def phase_decomp():
     must give equal bits. Returns the timed run's launch counts."""
     log("== phase 7: decomp track")
     small_decomp_agreement()
+    from collections import Counter
     from mimo_tpu_torch.decomp import factory as FA
     from mimo_tpu_torch.decomp import sam2 as S2
     from mimo_tpu_torch.ops import flash_attention as FAK
@@ -1526,7 +1554,7 @@ def phase_decomp():
         raise AssertionError(f"bboxes outside the frame: {bboxes}")
     if not same:
         raise AssertionError("two track runs differ")
-    return launches
+    return Counter(launches), Counter(widths)
 
 
 # ---------------------------------------------------------------------------
@@ -1799,7 +1827,369 @@ def phase_motion():
         if name == "framed template" and not 0.05 <= share <= 0.5:
             raise AssertionError(f"the framed template covers {share} of "
                                  f"the frame")
-    return launches
+    return launches, sdc
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the decomposition's background and occlusion stages
+# ---------------------------------------------------------------------------
+
+# the agreement check's clip: long enough for every chunk rule of the tiny
+# config (two RAFT clips, chunked flow completion and image propagation,
+# capped reference frames), as tests/test_torch_propainter.py runs it
+BK_AGREE_CLIP = (14, 16, 24)
+
+
+def _deform_align_unbounded(p, x, cond, groups, max_residue, flow=None):
+    """``propainter._deform_align`` without its ``max_residue * tanh`` bound
+    on the learned offsets (a planted fault)."""
+    from mimo_tpu_torch.decomp import propainter as P
+    from mimo_tpu_torch.ops.sampling import deform_conv2d
+    out = P._offset_stack(p["offset"], cond)
+    n = out.shape[-1] // 3
+    offset = torch.cat([out[..., :n], out[..., n:2 * n]], dim=-1)
+    if flow is not None:
+        offset = offset + flow.flip(-1).repeat(1, 1, 1, offset.shape[-1] // 2)
+    return deform_conv2d(x, offset, p["kernel"], p["bias"],
+                         mask=torch.sigmoid(out[..., 2 * n:]),
+                         deform_groups=groups)
+
+
+def bk_faults():
+    """The planted faults of phase 9's agreement check."""
+    from mimo_tpu_torch.decomp import propainter as P
+    warp = P.flow_warp
+    return {
+        "flow_warp x and y swapped": lambda: patched(
+            P, "flow_warp", lambda img, flow: warp(img, flow.flip(-1))),
+        "_deform_align without the tanh bound": lambda: patched(
+            P, "_deform_align", _deform_align_unbounded),
+    }
+
+
+# the check's offset stacks: their zero-initialised last convs drawn with
+# this spread, which takes the offsets past tanh's linear range
+OFFSET_STD = 0.5
+
+
+def bk_agreement_error(seed: int, fault=None):
+    """The tiny RAFT + ProPainter ``inpaint_video`` of a 14-frame 16x24
+    clip and the tiny DepthAnythingV2's ``depth_forward`` of a 70x42 input,
+    on the card in fp32 against the CPU in fp32 on the same weights and
+    inputs (no kernel of the 15 is on either). The composite takes the
+    generator's output inside the masks, which random weights make nearly
+    blind to its inputs, and random RAFT flows fail the forward-backward
+    check, so the image propagation fills nothing; so two stages are also
+    held alone: every deformable alignment call of the card run (the flow
+    net's and the generator's; the offset stacks' last convs drawn with
+    ``OFFSET_STD``) against the same call on the CPU on its own inputs,
+    and ``img_propagation`` of the clip along a consistent translation
+    (forward flow f, backward -f) on the card against the CPU. ``fault``
+    plants a known error in the card run only. Returns {name: (max, mean)
+    absolute error} for "raft" (the flows), "deform_align",
+    "img_propagation", "inpaint" (over [0, 1] pixels) and "depth"."""
+    from mimo_tpu_torch.decomp import depth_anything as DA
+    from mimo_tpu_torch.decomp import propainter as P
+    from mimo_tpu_torch.decomp import raft as R
+    deform_align = P._deform_align
+    gen = torch.Generator().manual_seed(seed)
+    pcfg, rcfg, dcfg = (P.tiny_propainter_config(), R.tiny_raft_config(),
+                        DA.tiny_depth_config())
+    pp = P.propainter_init(gen, pcfg)
+    for align in (pp["flow"]["prop"]["align_fwd"],
+                  pp["flow"]["prop"]["align_bwd"], pp["gen"]["align_fwd"],
+                  pp["gen"]["align_bwd"]):
+        for leaf in align["offset"]["c4"].values():
+            leaf.normal_(0, OFFSET_STD, generator=gen)
+    rp = R.raft_init(gen, rcfg)
+    dp = DA.depth_anything_init(gen, dcfg)
+    rng = np.random.default_rng(seed)
+    t, h, w = BK_AGREE_CLIP
+    frames = rng.uniform(0, 1, (t, h, w, 3)).astype(np.float32)
+    masks = np.zeros((t, h, w, 1), np.float32)
+    for i in range(t):
+        masks[i, 4:10, 3 + i % 5:12 + i % 5] = 1
+    px = rng.standard_normal((1, 70, 42, 3)).astype(np.float32)
+    shift = np.tile(np.asarray([1.5, -2.0], np.float32), (t - 1, h, w, 1))
+
+    def to(x, device):
+        return _map_tree(x, lambda v: v.to(device)
+                         if isinstance(v, torch.Tensor) else v)
+
+    def run(device, trees, calls=None):
+        pp_, rp_, dp_ = trees
+        flows = []
+        raft_bi = R.raft_bi
+
+        def raft_recorded(*args):
+            out = raft_bi(*args)
+            flows.append(torch.cat([o.reshape(-1) for o in out]).cpu())
+            return out
+
+        align = P._deform_align      # a planted fault's, in a faulty run
+
+        def align_recorded(*args, **kwargs):
+            out = align(*args, **kwargs)
+            calls.append((to(list(args), "cpu"), to(kwargs, "cpu"), out.cpu()))
+            return out
+
+        fr, ms = (torch.from_numpy(a).to(device) for a in (frames, masks))
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(R, "raft_bi", raft_recorded))
+            if calls is not None:
+                stack.enter_context(patched(P, "_deform_align",
+                                            align_recorded))
+            inp = P.inpaint_video(pp_, pcfg, rp_, rcfg, fr, ms)
+        prop, _ = P.img_propagation(fr * 2 - 1, torch.from_numpy(
+            shift).to(device), torch.from_numpy(-shift).to(device), ms)
+        dep = DA.depth_forward(dp_, dcfg, torch.from_numpy(px).to(device))
+        return {"raft": torch.cat(flows), "img_propagation": prop.cpu(),
+                "inpaint": inp.cpu(), "depth": dep.float().cpu()}
+
+    want = run("cpu", (pp, rp, dp))
+    calls = []
+    with (fault() if fault is not None else contextlib.nullcontext()):
+        got = run("cuda", [to(x, "cuda") for x in (pp, rp, dp)], calls)
+    errors = {}
+    for name in want:
+        err = (got[name] - want[name]).abs()
+        errors[name] = (float(err.max()), float(err.mean()))
+    errs = [(out - deform_align(*args, **kwargs)).abs()
+            for args, kwargs, out in calls]
+    errors["deform_align"] = (max(float(e.max()) for e in errs),
+                              float(sum(e.sum() for e in errs)
+                                    / sum(e.numel() for e in errs)))
+    return errors
+
+
+# The card-vs-CPU limits of phase 9's check, (max, mean) a model: between
+# the sound seeds and the planted faults of ``python3 chip_smoke.py
+# --calibrate bk`` (readings in PERF.md).
+BK_TOLS = {"raft": (1e-5, 1e-6), "img_propagation": (1e-3, 1e-4),
+           "inpaint": (2e-6, 1.5e-8), "depth": (1e-6, 1e-7),
+           "deform_align": (1e-4, 1e-5)}
+
+
+def small_bk_agreement() -> None:
+    errors = bk_agreement_error(7)
+    t, h, w = BK_AGREE_CLIP
+    log(f"  tiny RAFT + ProPainter inpaint_video {t}x{h}x{w} (its deformable "
+        f"alignments each on its own inputs; img_propagation along a "
+        f"consistent shift) and tiny DepthAnythingV2 depth_forward 70x42, "
+        f"card fp32 vs CPU fp32 (limits between the sound seeds and the "
+        f"planted faults of --calibrate bk):")
+    bad = []
+    for name, (mx, mean) in errors.items():
+        tmx, tmean = BK_TOLS[name]
+        ok = mx <= tmx and mean <= tmean
+        log(f"    {name}: max_abs_err={mx:.4g} mean_abs_err={mean:.4g} "
+            f"(tolerance max <= {tmx}, mean <= {tmean}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"the card's background / depth models disagree "
+                             f"with the CPU reference in {bad}")
+
+
+def bk_calibrate() -> None:
+    """Phase 9's readings: sound seeds, then the planted faults; and the
+    full-width DINOv2-L's d = 64 flash check, sound and under a x1.25
+    softmax scale."""
+    log("== calibrate: tiny RAFT + ProPainter and DepthAnythingV2, card fp32 "
+        "vs CPU fp32")
+    for name, seed, fault in ([(f"sound seed {s}", s, None)
+                               for s in (7, 8, 9, 10, 11)]
+                              + [(f"fault '{n}' seed 7", 7, f)
+                                 for n, f in bk_faults().items()]):
+        errors = bk_agreement_error(seed, fault)
+        log(f"  {name}: " + "; ".join(
+            f"{m} max_abs_err={mx:.4g} mean_abs_err={mean:.4g}"
+            for m, (mx, mean) in errors.items()))
+    from mimo_tpu_torch.decomp import factory as FA
+    from mimo_tpu_torch.ops import flash_attention as FAK
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    cfg = dict(zip(FA.BUNDLES, FA.configs(tiny=False)))["depth"]
+    params = {"depth": FA.load_params(None, "depth", cfg, torch.device("cuda"),
+                                      torch.bfloat16, 0)}
+    models = FA.build_decomp_models(params=params)
+    frame = PD.synth_frames(*PD.CLIP)[0][0]
+    for name, fault in (("sound", None), ("flash scale x1.25", lambda: patched(
+            FAK, "LOG2E", FAK.LOG2E * 1.25))):
+        with (fault() if fault else contextlib.nullcontext()):
+            label, mx, mean = depth_attention_check(models, frame)
+        log(f"  DINOv2-L flash {label}, {name}: max_abs_err={mx:.4g} "
+            f"mean_abs_err={mean:.4g}")
+
+
+# DINOv2-L's d = 64 flash on one block's own q, k, v against the fp32 plain
+# attention: bf16 inputs, bf16 output (as phase 7's Hiera-L check, whose
+# limit this is)
+DEPTH_ATTENTION_TOL = (0.05, 0.004)
+
+
+def depth_attention_check(models, frame):
+    """``models.depth`` on one frame, its first d = 64 flash call recorded:
+    that call's output against ``attention_plain`` in fp32 on the CPU on
+    its own q, k, v. Returns (the call's shape, max, mean)."""
+    from mimo_tpu_torch.ops import attention as AT
+    from mimo_tpu_torch.ops import flash_attention as FAK
+    calls = []
+    flash = AT.flash_attention_nt
+
+    def recorded(q, k, v, heads):
+        out = flash(q, k, v, heads)
+        if not calls and q.shape[2] // heads == 64:
+            calls.append(((q, k, v, heads), out))
+        return out
+
+    with patched(AT, "flash_attention_nt", recorded):
+        models.depth(frame)
+    if not calls:
+        raise AssertionError("the depth model did not reach the flash kernel "
+                             "at d = 64")
+    (q, k, v, heads), out = calls[0]
+    err = (out.float().cpu() - FAK.attention_plain(
+        q.float().cpu(), k.float().cpu(), v.float().cpu(), heads)).abs()
+    views = q.stride(1) == 3 * q.shape[2]
+    return (f"B={q.shape[0]} S={q.shape[1]} H={heads} d=64"
+            f"{' (q|k|v views)' if views else ''}",
+            float(err.max()), float(err.mean()))
+
+
+def phase_bk_occ(sdc):
+    """The decomposition half's background and occlusion stages at full
+    width (seeded random bf16 weights) on phase 7's 48-frame 720x480 clip
+    and its known masks: ``get_bk_recover`` (RAFT + ProPainter) untimed
+    then timed through tools/profile_decomp.py, equal bits, a (48, 720,
+    480, 3) uint8 background within one level of the frame outside the
+    dilated masks, a finite composite, the back-off ratio 1.0; then
+    DINOv2-L's d = 64 flash on its own inputs and ``get_occ`` with phase
+    8's sdc twice (equal bits). Returns the launch counts and flash launches
+    by head width of the bk and occ runs."""
+    log("== phase 9: decomp bk + occ")
+    small_bk_agreement()
+    from collections import Counter
+    from mimo_tpu_torch.decomp import factory as FA
+    from mimo_tpu_torch.decomp import pipeline as DP
+    from mimo_tpu_torch.ops import flash_attention as FAK
+    from mimo_tpu_torch.ops import morphology as MO
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    t, h, w = PD.CLIP
+    dev = torch.device("cuda")
+    frames, masks, _ = PD.synth_frames(*PD.CLIP)
+
+    def build(stage):
+        t0 = time.perf_counter()
+        params = {name: FA.load_params(None, name, cfg, dev, torch.bfloat16,
+                                       0)
+                  for name, cfg in zip(FA.BUNDLES, FA.configs(tiny=False))
+                  if name in PD.STAGE_BUNDLES[stage]}
+        if "sam2" in params:
+            object_everywhere(params["sam2"])
+        models = FA.build_decomp_models(params=params)
+        torch.cuda.synchronize()
+        log(f"  {stage}: " + ", ".join(
+            f"{n} {sum(x.numel() for x in _leaves(params[n])) / 1e6:.1f} M"
+            for n in params) + f" params (bf16), random init "
+            f"{time.perf_counter() - t0:.1f} s")
+        return models
+
+    # -- bk ----------------------------------------------------------------
+    models = build("bk")
+    finite = []
+    inner = models.inpaint
+
+    def checked(frames01, m, phases=None):
+        out = inner(frames01, m, phases=phases)
+        finite.append(bool(torch.isfinite(out).all()))
+        return out
+
+    models.inpaint = checked
+    counters = reset_counts()
+    res = PD.run_bk(models, frames, masks)
+    launches = Counter({fn.__name__: fn.launches for fn in counters})
+    widths = Counter(FAK.flash_attention_nt.widths)
+    bk, first = res["out"], res["warm_up"]
+    dil = MO.dilate(masks.astype(np.uint8), MO.rect(9, 9)).astype(bool)
+    diff = np.abs(bk.astype(np.int16) - np.stack(frames).astype(np.int16))
+    outside = diff[~dil]
+    same = np.array_equal(bk, first)
+    log(f"  bk {bk.shape} {bk.dtype}, back-off ratio {res['ratio']}, "
+        f"|bk - frame| outside the dilated masks max {int(outside.max())} "
+        f"(mean {outside.mean():.4f}), inside mean "
+        f"{diff[dil].mean():.2f}; composite finite: {all(finite)}; the "
+        f"warm-up run {'equal in every bit' if same else 'DIFFERS'}; "
+        f"kernel launches {dict(launches)} (RAFT and ProPainter run none "
+        f"of the 15)")
+    if bk.shape != (t, h, w, 3) or bk.dtype != np.uint8:
+        raise AssertionError(f"bk {bk.shape} {bk.dtype}")
+    if not all(finite):
+        raise AssertionError("the bk composite is not finite")
+    if res["ratio"] != 1.0:
+        raise AssertionError(f"bk backed off to ratio {res['ratio']}")
+    if outside.max() > 1:
+        raise AssertionError("bk differs from the frame outside the masks")
+    if not same:
+        raise AssertionError("two bk runs differ")
+    del models, res, inner
+    torch.cuda.empty_cache()
+
+    # -- occ ---------------------------------------------------------------
+    models = build("occ")
+    label, mx, mean = depth_attention_check(models, frames[0])
+    tmx, tmean = DEPTH_ATTENTION_TOL
+    ok = mx <= tmx and mean <= tmean
+    log(f"  DINOv2-L flash {label} on its own inputs vs fp32 plain: "
+        f"max_abs_err={mx:.4g} mean_abs_err={mean:.4g} (tolerance max <= "
+        f"{tmx}, mean <= {tmean}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the depth model's d = 64 flash disagrees with "
+                             "plain attention")
+    vp = DP.VideoProcessor(models)
+    runs = []
+    calls = {"automask": models.automask, "depth": models.depth,
+             "track_video": models.track_video}
+    for i in range(2):
+        times = {}
+        for name, fn in calls.items():
+            setattr(models, name, PD.timed(times, name, fn))
+        counters = reset_counts()
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        occ = vp.get_occ(frames, masks, sdc, stats=stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs.append(occ)
+        cover = "None" if occ is None else \
+            f"{occ.shape} covering {occ.mean():.4f}"
+        log(f"  get_occ run {i + 1}: {secs:.2f} s ("
+            + ", ".join(f"{n} {len(ts)} x {np.mean(ts):.1f} ms"
+                        for n, ts in times.items())
+            + f"; the rest host); keyframes {stats['keyframes']}, candidates "
+            f"a keyframe {stats['candidates']}, occluders kept "
+            f"{stats['occluders']}, tracks run {stats['tracks']}; occ "
+            f"{cover}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    for name, fn in calls.items():
+        setattr(models, name, fn)
+    occ_launches = Counter({fn.__name__: fn.launches for fn in counters})
+    occ_widths = Counter(FAK.flash_attention_nt.widths)
+    log(f"  kernel launches in the second get_occ run: {dict(occ_launches)}; "
+        f"flash_attention_nt by head width {dict(occ_widths)}")
+    same = (runs[0] is None and runs[1] is None) or (
+        runs[0] is not None and runs[1] is not None
+        and np.array_equal(runs[0], runs[1]))
+    if not same:
+        raise AssertionError("two get_occ runs differ")
+    if runs[1] is not None and (runs[1].shape != (t, h, w)
+                                or runs[1].dtype != bool):
+        raise AssertionError(f"occ {runs[1].shape} {runs[1].dtype}")
+    if not (occ_widths.get(64) and occ_widths.get(16)):
+        raise AssertionError("the occ stage did not launch the flash kernel "
+                             "at d = 64 and d = 16")
+    return launches + occ_launches, widths + occ_widths
 
 
 def kernel_wrappers():
@@ -1838,8 +2228,11 @@ def patched(module, name, value):
 
 def calibrate(sections=()) -> None:
     """Readings that place the limits of the small-input agreement checks
-    (``sections``: any of "main", "decomp", "motion"; all if empty)."""
-    sections = set(sections) or {"main", "decomp", "motion"}
+    (``sections``: any of "main", "decomp", "motion", "bk"; all if
+    empty)."""
+    sections = set(sections) or {"main", "decomp", "motion", "bk"}
+    if "bk" in sections:
+        bk_calibrate()
     if "main" in sections:
         main_calibrate()
     if "decomp" in sections:
@@ -1988,13 +2381,14 @@ def motion_calibrate() -> None:
 
 
 def _leaves(tree):
+    """The tensors of a parameter tree (not its ints and strings)."""
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, list):
         for v in tree:
             yield from _leaves(v)
-    elif tree is not None:
+    elif isinstance(tree, torch.Tensor):
         yield tree
 
 
@@ -2018,15 +2412,27 @@ def main() -> None:
                 "edit": phase_edit(runner)}
     del runner
     torch.cuda.empty_cache()
-    launches["decomp"] = phase_decomp()
+    track, track_widths = phase_decomp()
     torch.cuda.empty_cache()
-    launches["motion"] = phase_motion()
+    launches["motion"], sdc = phase_motion()
+    torch.cuda.empty_cache()
+    bk_occ, bk_occ_widths = phase_bk_occ(sdc)
+    # the decomposition path: the track run of phase 7 and the bk and occ
+    # runs of phase 9, its flash entries counted at their head width
+    launches["decomp"] = track + bk_occ
+    widths = track_widths + bk_occ_widths
+
+    def launches_of(e):
+        if e["path"] == "decomp" and "width" in e:
+            return widths[e["width"]]
+        return launches[e["path"]][e["name"]]
+
     kernels = []
     for e in entries + ablation:
         kernels.append({"name": e["name"], "route": e["route"],
                         "source": e["source"], "replaces": e["replaces"],
                         "shape": e["shape"], "path": e["path"],
-                        "launches": launches[e["path"]][e["name"]],
+                        "launches": launches_of(e),
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                         "bound_by": e["bound_by"],

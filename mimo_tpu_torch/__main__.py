@@ -4,8 +4,8 @@ python -m mimo_tpu_torch <command> ...
   animate   character image animation from an sdc template
   edit      video character replacement with full compositing
   serve     gradio web app (if gradio is installed)
-  decomp    in-the-wild video -> template extraction (track, pose and
-            motion ported, not the command yet)
+  decomp    in-the-wild video -> template extraction (track, pose,
+            motion, bk and occ ported, not the command yet)
   bench     headline benchmark (not ported yet)
 
 animate and edit run on a CUDA device.
@@ -14,13 +14,14 @@ animate and edit run on a CUDA device.
 import sys
 
 NOT_PORTED = {
-    "decomp": "decomposition is ported up to its motion stage "
+    "decomp": "decomposition is ported up to its occlusion stage "
               "(mimo_tpu_torch.decomp: get_first_mask, get_human, get_bbox, "
-              "estimate_pose_batch, get_motion; profile them with `python -m "
+              "estimate_pose_batch, get_motion, get_bk_recover, get_occ; "
+              "profile them with `python -m "
               "mimo_tpu_torch.tools.profile_decomp --stages "
-              "track,pose,motion`); background, occlusion and the command's "
-              "`run` are not ported yet (ROADMAP.md, Queue 1 item 2); use "
-              "`python -m mimo_tpu decomp`",
+              "track,pose,motion,bk,occ`); the command's `run` (stage 7, "
+              "with video I/O) is not ported yet (ROADMAP.md, Queue 1 item "
+              "2); use `python -m mimo_tpu decomp`",
     "bench": "the benchmark is not ported yet (ROADMAP.md, Queue 1 item 1: "
              "bench.py imports jax); use `python bench.py` with JAX",
 }

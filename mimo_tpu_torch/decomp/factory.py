@@ -1,7 +1,7 @@
 """Wire the decomposition models into a ``DecompModels`` bundle.
 
 Counterpart of ``mimo_tpu/decomp/factory.py::build_decomp_models`` for the
-bundles of the ported stages (track, pose, motion):
+bundles of the ported stages (track, pose, motion, bk, occ):
 
   sam.npz        SAM ViT-H: the first-frame box segmentation, auto-masks
   sam2.npz       SAM2 Hiera-L: the video tracker
@@ -12,6 +12,9 @@ bundles of the ported stages (track, pose, motion):
   hamer.npz      HaMeR: its hand regression
   smpl.npz/.pkl  SMPL-H: the body model (sdc_info.npy, when present, its
                  sdc vertex colours)
+  raft.npz, propainter.npz
+                 RAFT and ProPainter: the background stage's ``inpaint``
+  depth.npz      DepthAnythingV2: the occlusion stage's ``depth``
 
 from a directory of npz bundles in the JAX package's flat format
 (``weights/convert_decomp.py``, ``tools/gen_decomp_weights.py``; the
@@ -19,8 +22,9 @@ weights bridge turns them into the port's trees), or, with no directory,
 seeded random weights at full width and the synthetic surface SMPL-H
 (``smpl.surface_smplh``), as ``chip_smoke.py`` and
 ``tools/profile_decomp.py`` run. A missing bundle leaves its stage
-disabled (the motion stage needs hmr and SMPL-H). The models run on the
-card unless the caller passes a CPU device.
+disabled (the motion stage needs hmr and SMPL-H, the background stage raft
+and propainter). The models run on the card unless the caller passes a CPU
+device.
 
 The SAM2 video encode is cached between ``track_video`` calls on one clip
 (the occlusion stage tracks every occluder seed through the same frames);
@@ -38,9 +42,12 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from mimo_tpu_torch.decomp import depth_anything as DA
 from mimo_tpu_torch.decomp import hmr as HMR
 from mimo_tpu_torch.decomp import motion as MO
 from mimo_tpu_torch.decomp import pipeline as DP
+from mimo_tpu_torch.decomp import propainter as PP
+from mimo_tpu_torch.decomp import raft as RAFT
 from mimo_tpu_torch.decomp import sam as SAM
 from mimo_tpu_torch.decomp import sam2 as SAM2
 from mimo_tpu_torch.decomp import smpl as SM
@@ -48,7 +55,8 @@ from mimo_tpu_torch.decomp import vitpose as VP
 from mimo_tpu_torch.decomp.detector import PoseScoredDetector
 from mimo_tpu_torch.weights import bridge
 
-BUNDLES = ("sam", "sam2", "vitpose", "hmr", "hamer")
+BUNDLES = ("sam", "sam2", "vitpose", "hmr", "hamer", "raft", "propainter",
+           "depth")
 
 
 def sample_mask_points(mask: np.ndarray, n: int = 5,
@@ -80,9 +88,11 @@ def configs(tiny: bool):
     if tiny:
         return (SAM.tiny_sam_config(), SAM2.tiny_sam2_config(),
                 VP.tiny_vitpose_config(), HMR.tiny_hmr_config(),
-                HMR.tiny_hmr_config())
+                HMR.tiny_hmr_config(), RAFT.tiny_raft_config(),
+                PP.tiny_propainter_config(), DA.tiny_depth_config())
     return (SAM.SAMConfig(), SAM2.SAM2Config(), VP.ViTPoseConfig(),
-            HMR.HMRConfig(), HMR.hamer_config())
+            HMR.HMRConfig(), HMR.hamer_config(), RAFT.RAFTConfig(),
+            PP.ProPainterConfig(), DA.DepthAnythingConfig())
 
 
 def load_params(weights_dir: Optional[str], name: str, cfg, device,
@@ -93,7 +103,9 @@ def load_params(weights_dir: Optional[str], name: str, cfg, device,
     if weights_dir is None:
         init = {"sam": SAM.sam_init, "sam2": SAM2.sam2_init,
                 "vitpose": VP.vitpose_init, "hmr": HMR.hmr_init,
-                "hamer": HMR.hmr_init}[name]
+                "hamer": HMR.hmr_init, "raft": RAFT.raft_init,
+                "propainter": PP.propainter_init,
+                "depth": DA.depth_anything_init}[name]
         gen = torch.Generator(device=device).manual_seed(
             seed + BUNDLES.index(name))
         return init(gen, cfg, dtype)
@@ -141,7 +153,7 @@ def build_decomp_models(weights_dir: Optional[str] = None,
                                     seed)
                   for name, cfg in cfgs.items()
                   if only is None or name in only}
-    models = DP.DecompModels()
+    models = DP.DecompModels(device=device)
 
     if params.get("sam") is not None:
         predictor = SAM.SamPredictor(params["sam"], sam_cfg)
@@ -192,4 +204,22 @@ def build_decomp_models(weights_dir: Optional[str] = None,
                 hamer_params=params.get("hamer"), hamer_cfg=cfgs["hamer"],
                 smpl_model=smpl_model, sdc_colors=sdc_colors
             ).estimate_motion
+
+    if params.get("raft") is not None and params.get("propainter") is not None:
+        def inpaint(frames01, masks, phases=None):
+            return PP.inpaint_video(
+                params["propainter"], cfgs["propainter"], params["raft"],
+                cfgs["raft"], torch.as_tensor(frames01).to(device, dtype),
+                torch.as_tensor(masks).to(device, dtype), phases=phases)
+
+        models.inpaint = inpaint
+
+    if params.get("depth") is not None:
+        def depth(frame):
+            image01 = torch.from_numpy(np.asarray(frame)).to(device).float() \
+                / 255.0
+            return DA.infer_depth(params["depth"], cfgs["depth"],
+                                  image01).cpu().numpy()
+
+        models.depth = depth
     return models

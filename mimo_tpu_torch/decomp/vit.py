@@ -153,6 +153,17 @@ def resize_grid(x: torch.Tensor, h: int, w: int, method: str) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def resize_images(x: torch.Tensor, h: int, w: int,
+                  method: str = "bilinear") -> torch.Tensor:
+    """(N, H, W, C) -> (N, h, w, C) as ``jax.image.resize`` over the two
+    spatial axes (antialiased when shrinking), in fp32, result in x's
+    dtype."""
+    my = torch.from_numpy(resize_matrix(x.shape[1], h, method)).to(x.device)
+    mx = torch.from_numpy(resize_matrix(x.shape[2], w, method)).to(x.device)
+    y = torch.einsum("ha,nabc,wb->nhwc", my, x.float(), mx)
+    return y.to(x.dtype)
+
+
 def _interp_pos_embed(pos: torch.Tensor, cfg: ViTConfig, gh: int,
                       gw: int) -> torch.Tensor:
     """The grid part of a learned pos embed resized bilinearly to a new

@@ -1,12 +1,12 @@
 """Per-call profile of the decomposition half's ported stages on the card.
 
-    python -m mimo_tpu_torch.tools.profile_decomp --stages track,pose,motion \
-        [--weights-dir DIR] [--trace]
+    python -m mimo_tpu_torch.tools.profile_decomp \
+        --stages track,pose,motion,bk,occ [--weights-dir DIR] [--trace]
 
-The port's counterpart of ``tools/profile_decomp.py``'s ``track``, ``pose``
-and ``motion`` stages, at full width (seeded random bf16 weights and the
-synthetic surface SMPL-H without ``--weights-dir``) on the same synthetic
-moving-figure clip (``synth_frames``, 48 frames of 720x480, ``CLIP``):
+The port's counterpart of ``tools/profile_decomp.py``'s stages, at full
+width (seeded random bf16 weights and the synthetic surface SMPL-H without
+``--weights-dir``) on the same synthetic moving-figure clip
+(``synth_frames``, 48 frames of 720x480, ``CLIP``):
 
 - track: SAM ViT-H, SAM2 Hiera-L and ViTPose-H. Random weights reject
   every person, so the gating is bypassed as the JAX tool does: the
@@ -21,6 +21,12 @@ moving-figure clip (``synth_frames``, 48 frames of 720x480, ``CLIP``):
   SMPL-H skinning, the z-buffer render) over the clip's known boxes; then
   HaMeR again through ``hand_params`` on keypoints drawn so that both hands
   are found on every frame (random weights may find none).
+- bk: ``VideoProcessor.get_bk_recover`` (RAFT + ProPainter) with the
+  figure's known masks; the times of its phases (RAFT, flow completion,
+  image propagation, the windows) and the back-off ratio it ran at.
+- occ: as the JAX tool, SAM's ``automatic_masks`` and the depth model
+  (DINOv2-L, its attention the flash kernel at d = 64) on frames 0 and
+  T // 2.
 
 Each stage runs once untimed, then timed: each model call's time (CUDA
 events around it; host work inside it counts), the host crop time apart
@@ -43,10 +49,13 @@ import torch
 
 from mimo_tpu_torch.tools.timing import card_line
 
-STAGES = ("track", "pose", "motion")
+STAGES = ("track", "pose", "motion", "bk", "occ")
 # the bundles each stage needs
 STAGE_BUNDLES = {"track": {"sam", "sam2", "vitpose"}, "pose": {"vitpose"},
-                 "motion": {"vitpose", "hmr", "hamer"}}
+                 "motion": {"vitpose", "hmr", "hamer"},
+                 "bk": {"raft", "propainter"},
+                 "occ": {"sam", "sam2", "depth"}}
+BK_PHASES = ("raft", "flow_complete", "img_propagation", "windows")
 CLIP = (48, 720, 480)               # frames, height, width
 
 
@@ -323,6 +332,93 @@ def run_stage(stage: str, models, frames, masks, boxes) -> Dict[str, object]:
     return res
 
 
+def _event_phases(times: Dict[str, List[float]]):
+    """``inpaint_video``'s ``phases``: each phase's CUDA-event time lands in
+    times[phase]."""
+    @contextlib.contextmanager
+    def timer(name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        end.synchronize()
+        times.setdefault(name, []).append(start.elapsed_time(end))
+    return {name: (lambda n=name: timer(n)) for name in BK_PHASES}
+
+
+def bk_stage(models, frames, masks, times=None):
+    """``get_bk_recover`` of the clip; with ``times``, ProPainter's phases
+    timed into it. Returns (background, the back-off ratio)."""
+    from mimo_tpu_torch.decomp import pipeline as DP
+    inner = models.inpaint
+    if times is not None:
+        models.inpaint = lambda fr, m: inner(fr, m,
+                                             phases=_event_phases(times))
+    try:
+        vp = DP.VideoProcessor(models)
+        out = vp.get_bk_recover(frames, masks)
+    finally:
+        models.inpaint = inner
+    return out, vp.bk_ratio
+
+
+def run_bk(models, frames, masks) -> Dict[str, object]:
+    """The bk stage untimed, then timed; prints the profile and returns
+    what it measured, with both passes' backgrounds."""
+    first, _ = bk_stage(models, frames, masks)
+    torch.cuda.synchronize()
+    times: Dict[str, List[float]] = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, ratio = bk_stage(models, frames, masks, times)
+    stage_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t, h, w = len(frames), *frames[0].shape[:2]
+    print(f"{card_line()}\nbk stage: {t} frames {h}x{w}, {stage_s:.2f} s "
+          f"wall, back-off ratio {ratio}; peak device memory {peak:.2f} GiB",
+          flush=True)
+    for name in BK_PHASES:
+        print(f"  {name}: {sum(times[name]):.1f} ms", flush=True)
+    return dict(out=out, warm_up=first, times=times, peak_gib=peak,
+                stage_s=stage_s, ratio=ratio)
+
+
+def run_occ(models, frames) -> Dict[str, object]:
+    """The JAX tool's occ stage: automask and depth on frames 0 and T // 2,
+    an untimed pass then a timed one; prints each call's time and the
+    flash launches by head width."""
+    from mimo_tpu_torch.ops.flash_attention import flash_attention_nt
+
+    def stage():
+        return [(len(models.automask(frames[kf])), models.depth(frames[kf]))
+                for kf in (0, len(frames) // 2)]
+
+    first = stage()
+    torch.cuda.synchronize()
+    times: Dict[str, List[float]] = {}
+    widths = Counter(flash_attention_nt.widths)
+    torch.cuda.reset_peak_memory_stats()
+    auto, depth = models.automask, models.depth
+    models.automask = timed(times, "automask (a frame)", auto)
+    models.depth = timed(times, "depth (a frame)", depth)
+    try:
+        out = stage()
+    finally:
+        models.automask, models.depth = auto, depth
+    widths = flash_attention_nt.widths - widths
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{card_line()}\nocc stage (automask + depth on frames 0 and "
+          f"{len(frames) // 2}): masks {[n for n, _ in out]}; peak device "
+          f"memory {peak:.2f} GiB; flash_attention_nt launches by head "
+          f"width {dict(sorted(widths.items()))}", flush=True)
+    for name, ts in times.items():
+        print(f"  {name}: {len(ts)} call(s), " + ", ".join(
+            f"{x:.1f}" for x in ts) + " ms", flush=True)
+    return dict(out=out, warm_up=first, times=times, peak_gib=peak,
+                widths=dict(widths))
+
+
 def trace(models, frames, seed_masks, boxes, top: int = 25) -> None:
     """Device time by kernel of one track stage (the clip encoded again)
     and one automask call under torch.profiler: the top kernels, the
@@ -348,20 +444,20 @@ def trace(models, frames, seed_masks, boxes, top: int = 25) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stages", default="track",
-                    help="comma-separated; ported: " + ", ".join(STAGES))
+                    help="comma-separated, of: " + ", ".join(STAGES))
     ap.add_argument("--weights-dir", default=None,
-                    help="npz bundles (sam, sam2, vitpose, hmr, hamer, "
-                         "smpl); random seeded weights at full width "
-                         "without it")
+                    help="npz bundles (sam, sam2, vitpose, hmr, hamer, smpl, "
+                         "raft, propainter, depth); random seeded weights "
+                         "at full width without it")
     ap.add_argument("--trace", action="store_true",
                     help="also profile one track stage + automask and print "
                          "the top kernels by device time")
     args = ap.parse_args(argv)
     stages = args.stages.split(",")
-    missing = set(stages) - set(STAGES)
-    if missing:
-        raise SystemExit(f"profile_decomp: stage(s) {sorted(missing)} not "
-                         f"ported yet (ported: {', '.join(STAGES)})")
+    unknown = set(stages) - set(STAGES)
+    if unknown:
+        raise SystemExit(f"profile_decomp: unknown stage(s) "
+                         f"{sorted(unknown)} (stages: {', '.join(STAGES)})")
     models = build(args.weights_dir, stages)
     clip = synth_frames(*CLIP)
     for stage in STAGES:
@@ -372,6 +468,10 @@ def main(argv=None) -> None:
             run(models, *clip)
             if args.trace:
                 trace(models, *clip)
+        elif stage == "bk":
+            run_bk(models, clip[0], clip[1])
+        elif stage == "occ":
+            run_occ(models, clip[0])
         else:
             run_stage(stage, models, *clip)
 

@@ -10,8 +10,9 @@ Without OpenCV the resizes differ: ``resize_frame`` and ``pose_adjust``
 resize with ``torch.nn.functional.interpolate`` (area when shrinking,
 bilinear with half-pixel centres when growing, the two cv2 modes
 ``resize_frame``'s original picks), where the originals fell back to
-nearest-neighbour sampling. With OpenCV every function computes what its
-original does. ``resize_linear`` is the perception models' resize (OpenCV's
+nearest-neighbour sampling. ``clean_mask`` computes OpenCV's morphology
+without it (``ops/morphology.py``). With OpenCV every function computes what
+its original does. ``resize_linear`` is the perception models' resize (OpenCV's
 default INTER_LINEAR at any scale), on the card without OpenCV.
 """
 
@@ -22,6 +23,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from mimo_tpu_torch.ops import morphology as MO
 
 try:
     import cv2
@@ -73,9 +76,10 @@ def extract_mask_sdc(img: np.ndarray) -> np.ndarray:
 
 
 def clean_mask(mask: np.ndarray) -> np.ndarray:
-    """Morphological close(5x5) + open(2x2); identity without OpenCV."""
+    """Morphological close(5x5) + open(2x2); without OpenCV through
+    ``ops/morphology.py``, equal in every bit."""
     if cv2 is None:
-        return mask
+        return MO.open(MO.close(mask, MO.rect(5, 5)), MO.rect(2, 2))
     se1 = cv2.getStructuringElement(cv2.MORPH_RECT, (5, 5))
     se2 = cv2.getStructuringElement(cv2.MORPH_RECT, (2, 2))
     mask = cv2.morphologyEx(mask, cv2.MORPH_CLOSE, se1)

@@ -16,7 +16,8 @@ The same tree structure comes out, with these layout changes:
   unflipped.
 
 Everything else (rel-pos tables, pos-embeds, BatchNorm statistics, token
-embeddings) copies through as it is.
+embeddings) copies through as it is; a string leaf (the depth head's resize
+kinds) stays a Python string.
 
 bfloat16 leaves arrive as ``ml_dtypes`` arrays (or, read back from an
 ``.npz``, as raw 2-byte records), which torch cannot take directly; their
@@ -48,6 +49,8 @@ TRANSPOSED_CONVS = {
 def _to_tensor(name: str, arr: np.ndarray, device, dtype,
                transposed: bool = False) -> torch.Tensor:
     arr = np.asarray(arr)
+    if arr.dtype.kind in "US":          # structural metadata (a string)
+        return arr.item() if arr.ndim == 0 else arr.tolist()
     if arr.dtype.name in ("bfloat16", "void16"):
         # an ml_dtypes bfloat16 array, or one read back from an .npz
         # (which stores it as raw 2-byte records)

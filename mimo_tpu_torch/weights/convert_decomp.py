@@ -11,6 +11,12 @@ without JAX can go from the published checkpoints to the bundles that
 - ViTPose-H wholebody (mmpose ``.pth``)      -> ``vitpose.npz``
 - HMR2 (4D-Humans ``epoch=35`` checkpoint)   -> ``hmr.npz``
 - HaMeR (``hamer.ckpt``)                     -> ``hamer.npz``
+- RAFT (``raft-things.pth``)                 -> ``raft.npz``
+- ProPainter (``ProPainter.pth`` with
+  ``recurrent_flow_completion.pth``)         -> ``propainter.npz``
+- DINOv2-L, DepthAnythingV2's encoder         -> ``convert_dinov2``, a
+  function only: neither package converts the DPT head, so no
+  ``depth.npz`` is written
 
 Transforms: Linear (out, in) -> (in, out); Conv OIHW -> HWIO;
 ConvTranspose (in, out, kh, kw) -> spatially flipped (kh, kw, in, out), the
@@ -22,7 +28,8 @@ Usage:
 
     python -m mimo_tpu_torch.weights.convert_decomp --out-dir DIR \
         [--sam SAM.pth] [--sam2 SAM2.pt] [--vitpose VITPOSE.pth] \
-        [--hmr2 HMR2.ckpt] [--hamer HAMER.ckpt]
+        [--hmr2 HMR2.ckpt] [--hamer HAMER.ckpt] [--raft RAFT.pth] \
+        [--propainter ProPainter.pth --flow-complete FLOW.pth]
 """
 
 from __future__ import annotations
@@ -395,17 +402,248 @@ def convert_hamer(state_dict: Mapping[str, Any], cfg) -> Dict[str, Any]:
                         pose_buffer="init_hand_pose")
 
 
+def convert_dinov2(state_dict: Mapping[str, Any], depth: int,
+                   prefix: str = "pretrained") -> Dict[str, Any]:
+    """DINOv2 encoder (DepthAnythingV2's ``pretrained.*`` keys) ->
+    ``decomp.vit`` params: cls token, LayerScale (ls1 / ls2 gamma), packed
+    qkv. The DPT head has no converter (in neither package)."""
+    sd = _SD(state_dict)
+    blocks = []
+    for i in range(depth):
+        bp = f"{prefix}.blocks.{i}"
+        blocks.append({
+            "ln1": _norm(sd, f"{bp}.norm1"),
+            "qkv": _linear(sd, f"{bp}.attn.qkv"),
+            "proj": _linear(sd, f"{bp}.attn.proj"),
+            "ln2": _norm(sd, f"{bp}.norm2"),
+            "fc1": _linear(sd, f"{bp}.mlp.fc1"),
+            "fc2": _linear(sd, f"{bp}.mlp.fc2"),
+            "ls1": sd.get(f"{bp}.ls1.gamma"),
+            "ls2": sd.get(f"{bp}.ls2.gamma"),
+        })
+    pos = _np(sd.get(f"{prefix}.pos_embed"))[0]  # (1+S, D) incl cls
+    return {
+        "patch_embed": _conv(sd, f"{prefix}.patch_embed.proj"),
+        "cls_token": _np(sd.get(f"{prefix}.cls_token"))[0, 0],
+        "pos_embed": pos,
+        "blocks": blocks,
+        "ln_out": _norm(sd, f"{prefix}.norm"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# RAFT (raft-things.pth lineage; keys may carry a DataParallel "module." prefix)
+# ---------------------------------------------------------------------------
+
+
+def convert_raft(state_dict: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """Published RAFT checkpoint -> ``decomp.raft`` params (``cfg``: a
+    ``RAFTConfig``).
+
+    fnet and cnet are BasicEncoders (conv1 + norm1 stem, layer{1,2,3}.{0,1}
+    residual blocks with an optional downsample, conv2 head); the update
+    block is the motion encoder (convc1 / convc2 / convf1 / convf2 / conv),
+    the SepConvGRU (convz1 / r1 / q1 horizontal, convz2 / r2 / q2
+    vertical), the flow head and the mask head (mask.0 / mask.2). fnet's
+    instance norms have no parameters (identity scale and bias); cnet's
+    eval-mode BatchNorm2d folds into a fixed affine, scale = weight /
+    sqrt(running_var + eps), bias = bias - running_mean * scale."""
+    sd = _SD({k[len("module."):] if k.startswith("module.") else k: v
+              for k, v in state_dict.items()})
+
+    def inorm(c):
+        return {"scale": np.ones((c,), np.float32),
+                "bias": np.zeros((c,), np.float32)}
+
+    def bnorm(prefix, c):
+        w = _np(sd.get(f"{prefix}.weight")).astype(np.float32)
+        b = _np(sd.get(f"{prefix}.bias")).astype(np.float32)
+        rm = _np(sd.get(f"{prefix}.running_mean")).astype(np.float32)
+        rv = _np(sd.get(f"{prefix}.running_var")).astype(np.float32)
+        if sd.has(f"{prefix}.num_batches_tracked"):
+            sd.get(f"{prefix}.num_batches_tracked")  # consume the buffer
+        scale = w / np.sqrt(rv + 1e-5)
+        return {"scale": scale, "bias": b - rm * scale}
+
+    def resunit(prefix, c_out, stride, norm):
+        p = {
+            "conv1": _conv(sd, f"{prefix}.conv1"),
+            "n1": norm(f"{prefix}.norm1", c_out),
+            "conv2": _conv(sd, f"{prefix}.conv2"),
+            "n2": norm(f"{prefix}.norm2", c_out),
+            "stride": stride,
+        }
+        if sd.has(f"{prefix}.downsample.0.weight"):
+            p["down"] = _conv(sd, f"{prefix}.downsample.0")
+            p["dn"] = norm(f"{prefix}.norm3", c_out)
+        return p
+
+    def encoder(prefix, norm_fn):
+        norm = (lambda pre, c: inorm(c)) if norm_fn == "instance" else bnorm
+        d1, d2, d3 = cfg.enc_dims
+        return {
+            "stem": _conv(sd, f"{prefix}.conv1"),
+            "stem_n": norm(f"{prefix}.norm1", d1),
+            "layer1": [resunit(f"{prefix}.layer1.0", d1, 1, norm),
+                       resunit(f"{prefix}.layer1.1", d1, 1, norm)],
+            "layer2": [resunit(f"{prefix}.layer2.0", d2, 2, norm),
+                       resunit(f"{prefix}.layer2.1", d2, 1, norm)],
+            "layer3": [resunit(f"{prefix}.layer3.0", d3, 2, norm),
+                       resunit(f"{prefix}.layer3.1", d3, 1, norm)],
+            "head": _conv(sd, f"{prefix}.conv2"),
+        }
+
+    ub = "update_block"
+    return {
+        "fnet": encoder("fnet", "instance"),
+        "cnet": encoder("cnet", "batch"),
+        "update": {
+            "mc1": _conv(sd, f"{ub}.encoder.convc1"),
+            "mc2": _conv(sd, f"{ub}.encoder.convc2"),
+            "mf1": _conv(sd, f"{ub}.encoder.convf1"),
+            "mf2": _conv(sd, f"{ub}.encoder.convf2"),
+            "mout": _conv(sd, f"{ub}.encoder.conv"),
+            "gru": {k: _conv(sd, f"{ub}.gru.conv{k}")
+                    for k in ("z1", "r1", "q1", "z2", "r2", "q2")},
+            "fh1": _conv(sd, f"{ub}.flow_head.conv1"),
+            "fh2": _conv(sd, f"{ub}.flow_head.conv2"),
+            "up1": _conv(sd, f"{ub}.mask.0"),
+            "up2": _conv(sd, f"{ub}.mask.2"),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# ProPainter (ProPainter.pth + recurrent_flow_completion.pth)
+# ---------------------------------------------------------------------------
+
+
+def _conv3d_spatial(sd: _SD, prefix: str) -> Dict[str, np.ndarray]:
+    """Conv3d with kt = 1 (C_out, C_in, 1, kh, kw) -> a 2-D HWIO conv."""
+    w = _np(sd.get(prefix + ".weight"))[:, :, 0]
+    p = {"kernel": _t_conv(w)}
+    if sd.has(prefix + ".bias"):
+        p["bias"] = sd.get(prefix + ".bias")
+    return p
+
+
+def _conv3d_temporal(sd: _SD, prefix: str) -> Dict[str, np.ndarray]:
+    """Conv3d (C_out, C_in, 3, 1, 1) -> the (3, C_in, C_out) kernel."""
+    w = _np(sd.get(prefix + ".weight"))[:, :, :, 0, 0]
+    return {"kernel": np.transpose(w, (2, 1, 0)),
+            "bias": _np(sd.get(prefix + ".bias"))}
+
+
+def _offset_stack_from(sd: _SD, prefix: str) -> Dict[str, Any]:
+    return {"c1": _conv(sd, f"{prefix}.0"), "c2": _conv(sd, f"{prefix}.2"),
+            "c3": _conv(sd, f"{prefix}.4"), "c4": _conv(sd, f"{prefix}.6")}
+
+
+def _deform_align_from(sd: _SD, prefix: str) -> Dict[str, Any]:
+    return {
+        "offset": _offset_stack_from(sd, f"{prefix}.conv_offset"),
+        "kernel": _t_conv(sd.get(f"{prefix}.weight")),
+        "bias": sd.get(f"{prefix}.bias"),
+    }
+
+
+def _p3d_from(sd: _SD, prefix: str) -> Dict[str, Any]:
+    return {"spatial": _conv3d_spatial(sd, f"{prefix}.conv1.0"),
+            "temporal": _conv3d_temporal(sd, f"{prefix}.conv2.0")}
+
+
+def convert_propainter(gen_sd: Mapping[str, Any],
+                       flow_sd: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """Published ProPainter checkpoints -> ``decomp.propainter`` params
+    (``cfg``: a ``ProPainterConfig``). gen_sd: ``ProPainter.pth`` (the
+    InpaintGenerator); flow_sd: ``recurrent_flow_completion.pth`` (the
+    RecurrentFlowCompleteNet), whose training-only edge detector is read
+    and dropped."""
+    fs = _SD(flow_sd)
+    fp = "feat_prop_module"
+    flow = {
+        "down": _conv3d_spatial(fs, "downsample.0"),
+        "enc1a": _p3d_from(fs, "encoder1.0"),
+        "enc1b": _p3d_from(fs, "encoder1.2"),
+        "enc2a": _p3d_from(fs, "encoder2.0"),
+        "enc2b": _p3d_from(fs, "encoder2.2"),
+        "mid": [_conv3d_spatial(fs, f"mid_dilation.{2 * i}")
+                for i in range(3)],
+        "prop": {
+            "align_bwd": _deform_align_from(
+                fs, f"{fp}.deform_align.backward_"),
+            "align_fwd": _deform_align_from(
+                fs, f"{fp}.deform_align.forward_"),
+            "backbone_bwd": [_conv(fs, f"{fp}.backbone.backward_.0"),
+                             _conv(fs, f"{fp}.backbone.backward_.2")],
+            "backbone_fwd": [_conv(fs, f"{fp}.backbone.forward_.0"),
+                             _conv(fs, f"{fp}.backbone.forward_.2")],
+            "fusion": _conv(fs, f"{fp}.fusion"),
+        },
+        "dec2": [_conv(fs, "decoder2.0"), _conv(fs, "decoder2.2.conv")],
+        "dec1": [_conv(fs, "decoder1.0"), _conv(fs, "decoder1.2.conv")],
+        "up": [_conv(fs, "upsample.0"), _conv(fs, "upsample.2.conv")],
+    }
+    for k in list(fs.sd):
+        if k.startswith("edgeDetector."):
+            fs.get(k)  # training-only head: read, unused at inference
+
+    gs = _SD(gen_sd)
+    enc = [_conv(gs, f"encoder.layers.{2 * i}") for i in range(9)]
+    blocks = []
+    for i in range(cfg.depths):
+        tp = f"transformers.transformer.{i}"
+        if gs.has(f"{tp}.attention.valid_ind_rolled"):
+            gs.get(f"{tp}.attention.valid_ind_rolled")  # a static buffer
+        blocks.append({
+            "ln1": _norm(gs, f"{tp}.norm1"),
+            "q": _linear(gs, f"{tp}.attention.query"),
+            "k": _linear(gs, f"{tp}.attention.key"),
+            "v": _linear(gs, f"{tp}.attention.value"),
+            "proj": _linear(gs, f"{tp}.attention.proj"),
+            "pool": _conv(gs, f"{tp}.attention.pool_layer"),
+            "ln2": _norm(gs, f"{tp}.norm2"),
+            "ff1": _linear(gs, f"{tp}.mlp.fc1.0"),
+            "ff2": _linear(gs, f"{tp}.mlp.fc2.1"),
+        })
+    gen = {
+        "enc": enc,
+        "ss": _linear(gs, "ss.embedding"),
+        "sc": _linear(gs, "sc.embedding"),
+        "sc_bias": _conv(gs, "sc.bias_conv"),
+        "blocks": blocks,
+        "align_bwd": _deform_align_from(gs, f"{fp}.deform_align.backward_1"),
+        "align_fwd": _deform_align_from(gs, f"{fp}.deform_align.forward_1"),
+        "backbone_bwd": [_conv(gs, f"{fp}.backbone.backward_1.0"),
+                         _conv(gs, f"{fp}.backbone.backward_1.2")],
+        "backbone_fwd": [_conv(gs, f"{fp}.backbone.forward_1.0"),
+                         _conv(gs, f"{fp}.backbone.forward_1.2")],
+        "fuse": [_conv(gs, f"{fp}.fuse.0"), _conv(gs, f"{fp}.fuse.2")],
+        "dec": [_conv(gs, "decoder.0.conv"), _conv(gs, "decoder.2"),
+                _conv(gs, "decoder.4.conv"), _conv(gs, "decoder.6")],
+    }
+    return {"flow": flow, "gen": gen}
+
+
 def convert_bundles(out_dir: str, *, sam: str = None, sam2: str = None,
                     vitpose: str = None, hmr2: str = None,
-                    hamer: str = None) -> Dict[str, str]:
+                    hamer: str = None, raft: str = None,
+                    propainter: str = None,
+                    flow_complete: str = None) -> Dict[str, str]:
     """Convert each checkpoint given into ``out_dir/<bundle>.npz`` at the
-    published widths; returns {bundle: path}."""
+    published widths; returns {bundle: path}. ``propainter`` (the
+    generator) needs ``flow_complete`` (the flow completion net) beside
+    it."""
     from mimo_tpu_torch.decomp import factory
-    cfg = dict(zip(("sam", "sam2", "vitpose", "hmr", "hamer"),
-                   factory.configs(tiny=False)))
+    cfg = dict(zip(factory.BUNDLES, factory.configs(tiny=False)))
+    if (propainter is None) != (flow_complete is None):
+        raise ValueError("propainter and flow_complete go together")
     jobs = {"sam": (sam, convert_sam), "sam2": (sam2, convert_sam2),
             "vitpose": (vitpose, convert_vitpose),
-            "hmr": (hmr2, convert_hmr2), "hamer": (hamer, convert_hamer)}
+            "hmr": (hmr2, convert_hmr2), "hamer": (hamer, convert_hamer),
+            "raft": (raft, convert_raft),
+            "propainter": (propainter, lambda sd, c: convert_propainter(
+                sd, load_state_dict(flow_complete), c))}
     os.makedirs(out_dir, exist_ok=True)
     written = {}
     for name, (path, convert) in jobs.items():
@@ -429,11 +667,19 @@ def main(argv=None) -> None:
     ap.add_argument("--vitpose", help="ViTPose-H wholebody .pth -> vitpose.npz")
     ap.add_argument("--hmr2", help="HMR2 checkpoint -> hmr.npz")
     ap.add_argument("--hamer", help="HaMeR checkpoint -> hamer.npz")
+    ap.add_argument("--raft", help="RAFT raft-things.pth -> raft.npz")
+    ap.add_argument("--propainter", help="ProPainter.pth -> propainter.npz "
+                    "(with --flow-complete)")
+    ap.add_argument("--flow-complete",
+                    help="recurrent_flow_completion.pth (with --propainter)")
     args = ap.parse_args(argv)
-    given = {k: getattr(args, k) for k in ("sam", "sam2", "vitpose", "hmr2",
-                                           "hamer")}
+    names = ("sam", "sam2", "vitpose", "hmr2", "hamer", "raft", "propainter",
+             "flow_complete")
+    given = {k: getattr(args, k) for k in names}
     if not any(given.values()):
         ap.error("no checkpoint given")
+    if (args.propainter is None) != (args.flow_complete is None):
+        ap.error("--propainter and --flow-complete go together")
     convert_bundles(args.out_dir, **given)
 
 

@@ -38,6 +38,9 @@ SLICE_MODULES = [
     "mimo_tpu_torch.weights.convert_decomp", "mimo_tpu_torch.decomp.transforms",
     "mimo_tpu_torch.decomp.smpl", "mimo_tpu_torch.decomp.hmr",
     "mimo_tpu_torch.decomp.renderer", "mimo_tpu_torch.decomp.motion",
+    "mimo_tpu_torch.ops.morphology", "mimo_tpu_torch.ops.sampling",
+    "mimo_tpu_torch.decomp.raft", "mimo_tpu_torch.decomp.propainter",
+    "mimo_tpu_torch.decomp.depth_anything", "mimo_tpu_torch.decomp.occlusion",
 ]
 
 

@@ -284,5 +284,5 @@ def test_profile_track_stage_at_tiny_size(tiny_bundles, monkeypatch):
     assert bboxes.shape == (5, 4)
     assert (bboxes[:, [0, 2]] <= 48).all() and (bboxes[:, [1, 3]] <= 72).all()
     assert (bboxes >= 0).all()
-    with pytest.raises(SystemExit, match="not ported"):
-        PD.main(["--stages", "track,bk"])
+    with pytest.raises(SystemExit, match="unknown stage"):
+        PD.main(["--stages", "track,segment"])
