@@ -115,10 +115,35 @@ Phases, in order; any failure exits non-zero:
    twice (equal bits), printing the keyframes, the candidates, the
    occluders kept, the tracks run and the seconds; d = 64 and d = 16 flash
    launches must be > 0;
-10. the kernels' JSON line (``launches`` from the run of the entry's
+10. decomp run -> animate -> edit through the port's commands, OpenCV held
+   off as on the card: phase 7's clip drawn at 1.5x (48 frames 1080x720)
+   and written as the port writes video without OpenCV (an uncompressed
+   AVI); ``VideoProcessor.run`` into a template directory at full width
+   (every bundle, seeded random bf16 weights with phases 7-9's
+   adjustments; the detector replaced by the figure's box and, where the
+   random ViTPose fails it, the full-body gate by the figure's keypoints),
+   which caps the clip to 720x480; each stage's seconds, the stage files'
+   write and read times, the template's bytes, the peak memory and flash
+   launches by head width (d = 16, 64 and 72 must be > 0); every stage file
+   read back equal in every bit to its stage's output, (48, 4) boxes inside
+   the frame, and a resumed run that recomputes only the occlusion stage
+   and writes every file again equal in every bit; then ``python3 -m
+   mimo_tpu_torch decomp --max-frames 8`` unpatched (seeded weights) in a
+   subprocess, which must exit with a pipeline code, print its line and
+   write vid.mp4; then ``animate`` (24 frames 512x784, 2 steps) and
+   ``edit`` (784x784 ROI shots, 2 steps) through
+   ``mimo_tpu_torch.__main__.main`` from that template and a reference PNG
+   the port wrote (beside it, a 2048x2048 RGBA PNG of Paeth rows, as image
+   tools write them, must read back to its pixels; both loads are timed):
+   each must launch every main-path kernel; 24 uint8
+   784x512 frames that are not constant; 48 uint8 720x480 edited frames
+   equal to bk within 1 outside the shots' bboxes (and the occlusion mask);
+11. the kernels' JSON line (``launches`` from the run of the entry's
    ``path``: phase 5, 6 or the tool's run of phase 4; the "decomp" path's
-   flash entries count their head width's launches in phases 7 and 9),
-   then the last line: {"ok": true, "device": {...}}.
+   flash entries count their head width's launches in phases 7 and 9; under
+   "decomp-run" one row a kernel launched in phase 10, a flash wrapper's
+   one a head width, with its phase-10 launches), then the last line:
+   {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --calibrate [main] [decomp] [motion] [bk]`` runs
 phases 1-2, then the readings that place the limits of the small-input
@@ -132,7 +157,8 @@ result line: run from another tree's checkout, it times that tree's kernels
 on the same cases.
 
 Needs no JAX, no OpenCV and no files from outside the repository; weights
-are random, drawn from a seeded torch.Generator.
+are random, drawn from a seeded torch.Generator. Phase 10 writes its clip
+and template into a temporary directory (``TMPDIR``) and removes it.
 """
 
 import contextlib
@@ -140,9 +166,13 @@ import dataclasses
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from collections import Counter
 
 import numpy as np
 import torch
@@ -1352,7 +1382,6 @@ def decomp_agreement_error(seed: int, fault=None):
     absolute error over its calls}, with one Hiera-L global block's flash
     attention (``GLOBAL_ATTENTION``) held to the fp32 plain attention on
     its own inputs, and the card run's flash launches by head width."""
-    from collections import Counter
     from mimo_tpu_torch.decomp import sam2 as S2
     from mimo_tpu_torch.ops import flash_attention as FAK
     cfg = decomp_agreement_config()
@@ -1492,7 +1521,6 @@ def phase_decomp():
     must give equal bits. Returns the timed run's launch counts."""
     log("== phase 7: decomp track")
     small_decomp_agreement()
-    from collections import Counter
     from mimo_tpu_torch.decomp import factory as FA
     from mimo_tpu_torch.decomp import sam2 as S2
     from mimo_tpu_torch.ops import flash_attention as FAK
@@ -2069,7 +2097,6 @@ def phase_bk_occ(sdc):
     by head width of the bk and occ runs."""
     log("== phase 9: decomp bk + occ")
     small_bk_agreement()
-    from collections import Counter
     from mimo_tpu_torch.decomp import factory as FA
     from mimo_tpu_torch.decomp import pipeline as DP
     from mimo_tpu_torch.ops import flash_attention as FAK
@@ -2192,6 +2219,393 @@ def phase_bk_occ(sdc):
     return launches + occ_launches, widths + occ_widths
 
 
+# ---------------------------------------------------------------------------
+# phase 10: decomp run -> animate -> edit through the port's commands
+# ---------------------------------------------------------------------------
+
+# phase 7's clip drawn at 1.5x its size: the 720-pixel cap of ``run`` brings
+# it back to 720x480
+RUN_CLIP = (48, 1080, 720)
+PAETH_PNG = 2048           # side of the Paeth-filtered PNG phase 10 reads
+RUN_STAGES = ("get_human", "get_motion", "get_bk_recover", "get_occ")
+# COCO's 17 body keypoints of the drawn figure, as fractions of its box
+FIGURE_KEYPOINTS = ((0.5, 0.08), (0.45, 0.06), (0.55, 0.06), (0.4, 0.08),
+                    (0.6, 0.08), (0.3, 0.25), (0.7, 0.25), (0.25, 0.42),
+                    (0.75, 0.42), (0.22, 0.58), (0.78, 0.58), (0.38, 0.6),
+                    (0.62, 0.6), (0.38, 0.8), (0.62, 0.8), (0.38, 0.97),
+                    (0.62, 0.97))
+
+
+def figure_keypoints(bbox):
+    """(133, 3) wholebody keypoints: the figure's 17 body points inside
+    ``bbox`` (xyxy) at score 1, the rest at score 0."""
+    x0, y0, x1, y1 = np.asarray(bbox, np.float64)
+    k = np.zeros((133, 3))
+    for i, (fx, fy) in enumerate(FIGURE_KEYPOINTS):
+        k[i] = (x0 + fx * (x1 - x0), y0 + fy * (y1 - y0), 1.0)
+    return k
+
+
+def run_models(box0):
+    """Every decomposition bundle at full width (seeded random bf16 weights
+    with phases 7-9's adjustments, ``object_everywhere`` and
+    ``framed_bodies``), the detector replaced by the drawn figure's box on
+    frame 0 (random weights find no person), and where the random model
+    fails it, the full-body gate by the figure's keypoints and SAM's mask
+    of the box by the figure's (a cleaned random SAM mask may be empty:
+    phase 7 tracks the known mask for that reason). Returns the models and
+    a dict that gets the random models' own readings: "pose", the gate's
+    count of confident body keypoints, and "sam", the cleaned mask's
+    pixels."""
+    from mimo_tpu_torch.decomp import factory as FA
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = {name: FA.load_params(None, name, cfg, dev, torch.bfloat16, 0)
+              for name, cfg in zip(FA.BUNDLES, FA.configs(tiny=False))}
+    object_everywhere(params["sam2"])
+    models = FA.build_decomp_models(params=framed_bodies(params))
+    torch.cuda.synchronize()
+    log(f"  every bundle at full width: " + ", ".join(
+        f"{n} {sum(x.numel() for x in _leaves(params[n])) / 1e6:.1f} M"
+        for n in params) + f" params (bf16), random init "
+        f"{time.perf_counter() - t0:.1f} s")
+    own = {}
+    random_pose = models.estimate_pose
+
+    def estimate_pose(frame, bbox):
+        k = random_pose(frame, bbox)
+        own["pose"] = int((k[:17, 2] > 0.3).sum())
+        return k if own["pose"] >= 10 else figure_keypoints(bbox)
+
+    random_segment = models.segment_box
+
+    def segment_box(frame, bbox):
+        from mimo_tpu_torch.ops.connected_components import clean_mask
+        m = random_segment(frame, bbox)
+        own["sam"] = int(clean_mask(m, 256).sum())
+        if own["sam"]:
+            return m
+        x0, y0, x1, y1 = box0
+        m = np.zeros(frame.shape[:2], bool)
+        m[y0:y1, x0:x1] = True
+        return m
+
+    models.detect_person = lambda frame: (np.asarray(box0), 1.0)
+    models.estimate_pose = estimate_pose
+    models.segment_box = segment_box
+    return models, own
+
+
+def instrumented_run(vp, times, outputs):
+    """``vp``'s stages timed (CUDA-synchronised wall seconds into
+    ``times``) and their outputs kept in ``outputs``."""
+    for name in RUN_STAGES:
+        def call(*args, _fn=getattr(vp, name), _name=name, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[_name] = time.perf_counter() - t0
+            outputs[_name] = out
+            return out
+        setattr(vp, name, call)
+
+
+@contextlib.contextmanager
+def io_timed(records):
+    """Within: video_io's stage-file writes and reads append (what, file
+    name, seconds, frames) to ``records``."""
+    from mimo_tpu_torch.utils import video_io as VIO
+    names = ("save_video", "read_frames", "load_video_fixed_fps")
+    saved = {n: getattr(VIO, n) for n in names}
+
+    def timed_io(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = saved[name](*args, **kwargs)
+            n = len(out) if out is not None else len(args[0])
+            records.append((name, os.path.basename(args[1] if name ==
+                                                   "save_video" else args[0]),
+                            time.perf_counter() - t0, n))
+            return out
+        return call
+
+    for n in names:
+        setattr(VIO, n, timed_io(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(VIO, n, fn)
+
+
+def file_bytes(d):
+    """Every file of directory ``d``: name -> bytes."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+@contextlib.contextmanager
+def without_opencv():
+    """Within: the port's video I/O and frame helpers take their paths
+    without OpenCV, as on the card's machine, which has none."""
+    from mimo_tpu_torch.utils import frames as FU
+    from mimo_tpu_torch.utils import video_io as VIO
+    with patched(VIO, "cv2", None), patched(FU, "cv2", None):
+        yield
+
+
+def paeth_png(img, path):
+    """``img`` (H, W, 4) uint8 written as an RGBA PNG with every row's Paeth
+    filter, as image tools pick it (the port writes filter 0 only)."""
+    h, w, _ = img.shape
+    x = img.astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.empty((h, 1 + 4 * w), np.uint8)
+    raw[:, 0] = 4
+    raw[:, 1:] = ((x - pred) & 255).reshape(h, 4 * w)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as out:
+        out.write(b"\x89PNG\r\n\x1a\n"
+                  + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+                  + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                  + chunk(b"IEND", b""))
+
+
+def phase_decomp_run(work):
+    """The decomposition's ``VideoProcessor.run`` at full width on a clip
+    written as the card writes video (the uncompressed AVI of
+    ``utils/video_io.py``), its stage files read back and a resumed run;
+    the ``decomp`` command as a subprocess; then ``animate`` and ``edit``
+    through ``mimo_tpu_torch.__main__.main`` on the template the run wrote.
+    Run ``without_opencv`` (the card's machine has none). Returns the
+    launch counts and flash launches by head width of the run, animate and
+    edit."""
+    log("== phase 10: decomp run -> animate -> edit through the port's "
+        "commands")
+    from mimo_tpu_torch import __main__ as CLI
+    from mimo_tpu_torch.decomp import pipeline as DP
+    from mimo_tpu_torch.entry import animate as AN
+    from mimo_tpu_torch.entry import edit as ED
+    from mimo_tpu_torch.entry.template import load_template
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    from mimo_tpu_torch.utils import frames as FU
+    from mimo_tpu_torch.utils import video_io as VIO
+    t, h, w = RUN_CLIP
+    frames, _, boxes = PD.synth_frames(t, h, w)
+    inp = os.path.join(work, "input.mp4")
+    t0 = time.perf_counter()
+    VIO.save_video(frames, inp, 30)
+    log(f"  input clip: {t} frames {h}x{w} written as an uncompressed AVI in "
+        f"{time.perf_counter() - t0:.3f} s, {os.path.getsize(inp)} bytes")
+    del frames
+    box0 = boxes[0] * 2 // 3                  # at the capped 720x480
+    models, own = run_models(box0)
+
+    # -- run, then resume --------------------------------------------------
+    tpl = os.path.join(work, "template")
+    vp = DP.VideoProcessor(models)
+    times, outputs, io = {}, {}, []
+    instrumented_run(vp, times, outputs)
+    counters = reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with io_timed(io):
+        res = vp.run(inp, tpl)
+    launches = Counter({fn.__name__: fn.launches for fn in counters})
+    widths = flash_widths()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  run: code {res['code']}, {res.get('num_frames')} frames, "
+        f"elapsed_s {res.get('elapsed_s', 0):.2f}; stages " + ", ".join(
+            f"{n} {s:.2f} s" for n, s in times.items())
+        + f"; the random ViTPose's full-body gate: {own.get('pose')} of "
+        f"17 keypoints > 0.3 ("
+        + ("its own" if own.get("pose", 0) >= 10
+           else "replaced by the figure's")
+        + f"); the random SAM's cleaned mask of the box: {own.get('sam')} "
+        f"pixels (" + ("its own" if own.get("sam") else
+                       "replaced by the figure's")
+        + f"); peak {peak:.2f} GiB")
+    log("  stage-file I/O: " + "; ".join(
+        f"{what} {name} {n} frames {s:.3f} s" for what, name, s, n in io))
+    log(f"  kernel launches in the run: {dict(launches)}; flash by wrapper "
+        f"and head width {dict(widths)}")
+    if res["code"] != DP.CODE_OK:
+        raise AssertionError(f"run returned code {res['code']}")
+    written = file_bytes(tpl)
+    want = ["bbox.npy", "bk.mp4", "config.json", "mask.mp4", "sdc.mp4",
+            "vid.mp4"] + (["occ.mp4"] if outputs["get_occ"] is not None
+                          else [])
+    log(f"  template: {sorted(written)}, {sum(map(len, written.values()))} "
+        f"bytes; occ {'found' if outputs['get_occ'] is not None else 'none'}")
+    if sorted(written) != sorted(want):
+        raise AssertionError(f"template files {sorted(written)}, want "
+                             f"{sorted(want)}")
+    masks = outputs["get_human"][0]
+    th, tw = masks.shape[1:]
+    t0 = time.perf_counter()
+    back = {n: np.stack(VIO.read_frames(os.path.join(tpl, n)))
+            for n in want if n.endswith(".mp4")}
+    read_s = time.perf_counter() - t0
+    vid = np.stack(VIO.load_video_fixed_fps(inp)[:t])
+    capped = np.stack([FU.resize_linear(f, tw, th, "cuda").cpu().numpy()
+                       for f in vid])
+    checks = {"vid.mp4": np.array_equal(back["vid.mp4"], capped),
+              "mask.mp4": np.array_equal(back["mask.mp4"][..., 0] > 127,
+                                         masks)
+              and set(np.unique(back["mask.mp4"])) <= {0, 255},
+              "sdc.mp4": np.array_equal(back["sdc.mp4"],
+                                        outputs["get_motion"]),
+              "bk.mp4": np.array_equal(back["bk.mp4"],
+                                       outputs["get_bk_recover"])}
+    if "occ.mp4" in back:
+        checks["occ.mp4"] = np.array_equal(back["occ.mp4"][..., 0] > 127,
+                                           outputs["get_occ"])
+    bboxes = np.load(os.path.join(tpl, "bbox.npy"))
+    log(f"  read back: {sum(len(b) for b in back.values())} frames in "
+        f"{read_s:.3f} s; equal in every bit to the stage outputs: "
+        f"{checks}; bbox.npy {bboxes.shape} {bboxes.dtype} in "
+        f"[{bboxes.min()}, {bboxes.max()}]; frames {th}x{tw}")
+    if (th, tw) != (h * 2 // 3, w * 2 // 3) or not all(checks.values()):
+        raise AssertionError("a stage file does not read back to its stage")
+    if bboxes.shape != (t, 4) or bboxes.min() < 0 or \
+            (bboxes[:, [0, 2]] > tw).any() or (bboxes[:, [1, 3]] > th).any():
+        raise AssertionError(f"bboxes outside the frame: {bboxes}")
+    if not all(widths[("flash_attention_nt", d)] for d in (16, 64, 72)):
+        raise AssertionError("the run did not launch the flash kernel at "
+                             "d = 16, 64 and 72")
+
+    again = DP.VideoProcessor(models)
+    times2, outputs2 = {}, {}
+    instrumented_run(again, times2, outputs2)
+    res2 = again.run(inp, tpl, resume=True)
+    same = file_bytes(tpl) == written
+    log(f"  resumed run: code {res2['code']}, elapsed_s "
+        f"{res2.get('elapsed_s', 0):.2f}, stages run {sorted(times2)}; "
+        f"every file {'equal in every bit' if same else 'DIFFERS'}")
+    if res2["code"] != DP.CODE_OK or set(times2) != {"get_occ"} or not same:
+        raise AssertionError("the resumed run recomputed a stage or wrote "
+                             "other bits")
+    del models, vp, again, outputs, outputs2, back, vid, capped
+    torch.cuda.empty_cache()
+
+    # -- the command, unpatched, in its own process --------------------------
+    out2 = os.path.join(work, "command")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mimo_tpu_torch", "decomp", "--video", inp,
+         "--output", out2, "--max-frames", "8"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    lines = [x for x in proc.stdout.splitlines()
+             if x.startswith("decomposition: ")]
+    log(f"  `python3 -m mimo_tpu_torch decomp --max-frames 8` (seeded "
+        f"weights): exit {proc.returncode} in {time.perf_counter() - t0:.1f}"
+        f" s: {lines}")
+    if proc.returncode not in (0, 1, 2, 3) or len(lines) != 1 or \
+            not os.path.exists(os.path.join(out2, "vid.mp4")):
+        raise AssertionError(f"the decomp command failed:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+
+    # -- animate and edit from the template ----------------------------------
+    ref_png = os.path.join(work, "ref.png")
+    VIO.save_image(template_frames()[0], ref_png)
+    t0 = time.perf_counter()
+    VIO.load_image(ref_png)
+    ref_s = time.perf_counter() - t0
+    # a user's reference as image tools write it: RGBA, Paeth rows, 4 MP
+    rgba = np.random.default_rng(5).integers(0, 256, (PAETH_PNG, PAETH_PNG, 4),
+                                             dtype=np.uint8)
+    rgba[:, : PAETH_PNG // 2] = np.arange(PAETH_PNG // 2)[None, :, None] // 8
+    paeth = os.path.join(work, "paeth.png")
+    paeth_png(rgba, paeth)
+    t0 = time.perf_counter()
+    got = VIO.load_image(paeth)
+    paeth_s = time.perf_counter() - t0
+    log(f"  load_image: the reference PNG (filter 0, "
+        f"{os.path.getsize(ref_png)} bytes) {ref_s:.3f} s; a {PAETH_PNG}^2 "
+        f"RGBA PNG of Paeth rows ({os.path.getsize(paeth)} bytes) "
+        f"{paeth_s:.3f} s")
+    if not np.array_equal(got, rgba[..., :3]):
+        raise AssertionError("the Paeth PNG did not read back to its pixels")
+    del rgba, got
+    runners = []
+
+    class Kept(AN.Runner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runners.append(self)
+
+    def cli(argv):
+        counters = reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched(AN, "Runner", Kept), patched(ED, "Runner", Kept):
+            CLI.main(argv)
+        wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in counters}
+        tm = runners[-1].last_timings
+        log(f"  {argv[0]}: {wall:.2f} s wall (model init included) | "
+            f"prepare {tm['prepare']:.1f} ms | mean step "
+            f"{tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms (CUDA "
+            f"events) | peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+            f" GiB; kernel launches {counts}")
+        for name, count in counts.items():
+            if count <= 0:
+                raise AssertionError(f"{argv[0]} never launched {name}")
+        runners.clear()
+        return Counter(counts), flash_widths()
+
+    anim = os.path.join(work, "animate.mp4")
+    a_launches, a_widths = cli(
+        ["animate", "--ref", ref_png, "--template", tpl, "--output", anim,
+         "--W", "512", "--H", "784", "--max-frames", "24", "--steps", "2"])
+    video = VIO.read_frames(anim)
+    std = float(np.stack(video).std())
+    log(f"  animate output: {len(video)} frames {video[0].shape} "
+        f"{video[0].dtype}, std {std:.2f}")
+    if len(video) != 24 or any(f.shape != (784, 512, 3) or f.dtype != np.uint8
+                               for f in video) or std <= 1.0:
+        raise AssertionError("animate wrote no 24-frame 784x512 video")
+
+    edited = os.path.join(work, "edit.mp4")
+    e_launches, e_widths = cli(
+        ["edit", "--ref", ref_png, "--template", tpl, "--output", edited,
+         "--steps", "2"])
+    out = VIO.read_frames(edited)
+    loaded = load_template(tpl, require_bk=True)
+    _, _, _, _, ctx, bboxes = FU.crop_human_clip_auto_context(
+        loaded.sdc, loaded.vid, loaded.bk, ED.OVERLAY)
+    log(f"  edit: {len(ctx)} ROI shots {[(c[0], c[-1]) for c in ctx]} with "
+        f"bboxes {bboxes}; output {len(out)} frames {out[0].shape}")
+    if len(out) != t or any(f.shape != (th, tw, 3) or f.dtype != np.uint8
+                            for f in out):
+        raise AssertionError("edit wrote no 48-frame 720x480 video")
+    bk_err = 0
+    for i, frame in enumerate(out):
+        outside = np.ones((th, tw), bool)
+        for c, (x0, x1, y0, y1) in zip(ctx, bboxes):
+            if i in c:
+                outside[y0:y1, x0:x1] = False
+        if loaded.occ is not None:
+            outside &= loaded.occ[i][..., 0] == 0
+        bk_err = max(bk_err, int(np.abs(frame[outside].astype(int)
+                                        - loaded.bk[i][outside]).max(
+                                            initial=0)))
+    log(f"  |edit - bk| outside the shots' bboxes <= {bk_err} (limit 1)")
+    if bk_err > 1:
+        raise AssertionError("the paste-back changed pixels it must keep")
+    return (launches + a_launches + e_launches,
+            widths + a_widths + e_widths)
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the main path (each counts its launches)."""
     from mimo_tpu_torch.ops import ffn as FF
@@ -2205,14 +2619,25 @@ def kernel_wrappers():
 
 
 def reset_counts():
-    """Every kernel wrapper's launch count (and flash's count by head width)
-    set to 0; returns the wrappers."""
+    """Every kernel wrapper's launch count (and the flash wrappers' counts by
+    head width) set to 0; returns the wrappers."""
     from mimo_tpu_torch.ops import flash_attention as FA
     counters = kernel_wrappers()
     for fn in counters:
         fn.launches = 0
     FA.flash_attention_nt.widths.clear()
+    FA.flash_attention_nt_bank.widths.clear()
     return counters
+
+
+def flash_widths():
+    """Both flash wrappers' launches since ``reset_counts``, by (wrapper
+    name, head width)."""
+    from mimo_tpu_torch.ops import flash_attention as FA
+    return Counter({(fn.__name__, d): n
+                    for fn in (FA.flash_attention_nt,
+                               FA.flash_attention_nt_bank)
+                    for d, n in fn.widths.items()})
 
 
 @contextlib.contextmanager
@@ -2421,23 +2846,40 @@ def main() -> None:
     # runs of phase 9, its flash entries counted at their head width
     launches["decomp"] = track + bk_occ
     widths = track_widths + bk_occ_widths
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work, \
+            without_opencv():
+        run_launches, run_widths = phase_decomp_run(work)
 
-    def launches_of(e):
-        if e["path"] == "decomp" and "width" in e:
-            return widths[e["width"]]
-        return launches[e["path"]][e["name"]]
+    def row(e, path, count):
+        return {"name": e["name"], "route": e["route"],
+                "source": e["source"], "replaces": e["replaces"],
+                "shape": e["shape"], "path": path, "launches": count,
+                "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                "library": e["library"]}
 
+    log("== phase 11: the kernels' JSON line")
     kernels = []
     for e in entries + ablation:
-        kernels.append({"name": e["name"], "route": e["route"],
-                        "source": e["source"], "replaces": e["replaces"],
-                        "shape": e["shape"], "path": e["path"],
-                        "launches": launches_of(e),
-                        "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                        "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                        "bound_by": e["bound_by"],
-                        "library_ms": e["library_ms"],
-                        "library": e["library"]})
+        kernels.append(row(e, e["path"], widths[e["width"]]
+                           if e["path"] == "decomp" and "width" in e
+                           else launches[e["path"]][e["name"]]))
+    # phase 10's decomposition run, animate and edit: one row a kernel
+    # (a flash wrapper's at each head width it launched there), with the
+    # numbers of its first phase-3 case and its launches in phase 10
+    run_rows = {}
+    for e in entries:
+        key = (e["name"], e["width"]) if "width" in e else e["name"]
+        count = run_widths[key] if "width" in e else run_launches[key]
+        if count and key not in run_rows:
+            run_rows[key] = row(e, "decomp-run", count)
+    unchecked = set(run_widths) - set(run_rows)
+    if unchecked:
+        raise AssertionError(f"phase 10 launched flash at {unchecked}, which "
+                             f"no phase-3 case checks")
+    kernels += run_rows.values()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (build "
         f"included)")
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,9 @@ disabled (the motion stage needs hmr and SMPL-H, the background stage raft
 and propainter). The models run on the card unless the caller passes a CPU
 device.
 
+``main`` is the ``decomp`` command (``python -m mimo_tpu_torch decomp``):
+a video in, a template directory out, through ``VideoProcessor.run``.
+
 The SAM2 video encode is cached between ``track_video`` calls on one clip
 (the occlusion stage tracks every occluder seed through the same frames);
 the cache key is an explicit clip id or a digest of every frame's bytes,
@@ -35,6 +38,7 @@ where the JAX package keyed on ``id()`` and the first and last frames
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import os
 from typing import Any, Dict, Optional, Sequence
@@ -223,3 +227,39 @@ def build_decomp_models(weights_dir: Optional[str] = None,
 
         models.depth = depth
     return models
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="MIMO template extraction (PyTorch port)")
+    ap.add_argument("--video", required=True)
+    ap.add_argument("--output", required=True)
+    ap.add_argument("--weights-dir", default=None,
+                    help="directory of npz bundles from `python -m "
+                         "mimo_tpu_torch.weights.convert_decomp` (seeded "
+                         "random weights at full width and a synthetic "
+                         "SMPL-H if omitted: smoke-test mode)")
+    ap.add_argument("--fps", type=int, default=30)
+    ap.add_argument("--max-frames", type=int, default=150)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: the CUDA device)")
+    args = ap.parse_args(argv)
+
+    models = build_decomp_models(args.weights_dir,
+                                 device="cpu" if args.cpu else None)
+    cfg = DP.DecompConfig(target_fps=args.fps, max_frames=args.max_frames)
+    result = DP.VideoProcessor(models, cfg).run(args.video, args.output)
+    code = result["code"]
+    msgs = {
+        DP.CODE_OK: "ok",
+        DP.CODE_NO_PERSON: "no person detected",
+        DP.CODE_PERSON_TOO_SMALL: "person too small",
+        DP.CODE_HALF_BODY: "person not fully visible",
+    }
+    print(f"decomposition: {msgs.get(code, code)} -> {args.output}")
+    if code != DP.CODE_OK:
+        raise SystemExit(code)
+
+
+if __name__ == "__main__":
+    main()

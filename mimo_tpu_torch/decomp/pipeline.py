@@ -1,14 +1,15 @@
-"""Template extraction, the stages ported so far: in-the-wild frames ->
-the first mask -> masks over the clip -> per-frame boxes -> the rendered
-SMPL-H "sdc" video -> the recovered background -> the occlusion masks.
+"""Template extraction: an in-the-wild video -> the first mask -> masks
+over the clip -> per-frame boxes -> the rendered SMPL-H "sdc" video -> the
+recovered background -> the occlusion masks, each stage written to a
+template directory (vid / mask / sdc / bk / occ .mp4, bbox.npy,
+config.json) that ``entry.template.load_template`` reads.
 
-Counterpart of ``mimo_tpu/decomp/pipeline.py``'s ``DecompConfig``,
-``DecompModels``, status codes and ``VideoProcessor.get_first_mask`` /
-``get_human`` / ``get_bbox`` / ``get_motion`` / ``get_bk_recover`` /
-``get_occ``. The models are injected callables
-(``factory.build_decomp_models`` wires them), so the stage logic runs
-without weights. ``run``, which persists every stage to a template
-directory, is not ported yet.
+Counterpart of ``mimo_tpu/decomp/pipeline.py``: ``DecompConfig``,
+``DecompModels``, the status codes and ``VideoProcessor`` (``run`` with its
+stage files and resume, and the stages it calls). The models are injected
+callables (``factory.build_decomp_models`` wires them), so the stage logic
+runs without weights. The stage files go through ``utils/video_io.py``,
+which needs no OpenCV.
 
 The background stage's mask dilation, resizes and uint8 quantisation run on
 the models' device (``DecompModels.device``) without OpenCV: the dilation
@@ -19,8 +20,11 @@ through ``ops/morphology.py``, the frames through
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from mimo_tpu_torch.decomp import occlusion as OCC
 from mimo_tpu_torch.ops import morphology as MO
 from mimo_tpu_torch.ops.connected_components import clean_mask
+from mimo_tpu_torch.utils import video_io as VIO
 from mimo_tpu_torch.utils.frames import resize_linear
 
 # status codes of the reference's get_first_mask
@@ -40,8 +45,9 @@ CODE_HALF_BODY = 3
 
 @dataclass
 class DecompConfig:
-    """The ported stages' settings; stage 7 adds its own."""
-
+    target_fps: int = 30
+    max_frames: int = 150
+    max_resolution: int = 720        # the longer side's cap
     mask_min_area: int = 256
     occ: OCC.OcclusionConfig = field(default_factory=OCC.OcclusionConfig)
 
@@ -60,7 +66,8 @@ class DecompModels:
       (tensors on ``device``: frames (T, H, W, 3), masks (T, H, W, 1))
     - automask(frame) -> list of {"segmentation": ...}
     - depth(frame) -> (H, W) float
-    - device: where the background stage's tensors live (None: the CPU)
+    - device: where the background stage's tensors and ``run``'s resize
+      live (None: the CPU)
     """
 
     detect_person: Optional[Callable] = None
@@ -196,3 +203,81 @@ class VideoProcessor:
         if occ is None:
             return None
         return np.stack([OCC.refine_occ_mask(o) for o in occ])
+
+    def run(self, vid_path: str, save_dir: str,
+            resume: bool = True) -> Dict[str, Any]:
+        """The clip at ``vid_path`` (resampled to ``target_fps``, cut to
+        ``max_frames``, its longer side capped at ``max_resolution``)
+        through every stage into ``save_dir``. With ``resume``, an existing
+        mask.mp4 and sdc.mp4 are read back instead of computed, and an
+        existing bk.mp4 is kept; vid.mp4, bbox.npy, occ.mp4 and
+        config.json are always written. Returns {"code"} (and
+        "num_frames", "elapsed_s" when the code is CODE_OK)."""
+        cfg = self.cfg
+        os.makedirs(save_dir, exist_ok=True)
+        t_start = time.time()
+
+        frames = VIO.load_video_fixed_fps(vid_path, cfg.target_fps)
+        frames = frames[: cfg.max_frames]
+        h, w = frames[0].shape[:2]
+        if max(h, w) > cfg.max_resolution:
+            s = cfg.max_resolution / max(h, w)
+            nh, nw = int(h * s) // 2 * 2, int(w * s) // 2 * 2
+            dev = torch.device(self.models.device or "cpu")
+            frames = [resize_linear(f, nw, nh, dev).cpu().numpy()
+                      for f in frames]
+
+        def stage_path(name):
+            return os.path.join(save_dir, name)
+
+        def save_masks(masks, name):
+            VIO.save_video([(m * 255).astype(np.uint8)[..., None]
+                            .repeat(3, -1) for m in masks],
+                           stage_path(name), cfg.target_fps)
+
+        result: Dict[str, Any] = {"code": CODE_OK}
+
+        VIO.save_video(frames, stage_path("vid.mp4"), cfg.target_fps)
+
+        if resume and os.path.exists(stage_path("mask.mp4")):
+            masks = np.stack([f[..., 0] > 127 for f in
+                              VIO.read_frames(stage_path("mask.mp4"))])
+        else:
+            masks, code = self.get_human(frames)
+            if code != CODE_OK:
+                result["code"] = code
+                return result
+            save_masks(masks, "mask.mp4")
+
+        bboxes = self.get_bbox(masks)
+        np.save(stage_path("bbox.npy"), bboxes)
+
+        if resume and os.path.exists(stage_path("sdc.mp4")):
+            sdc = np.stack(VIO.read_frames(stage_path("sdc.mp4")))
+        else:
+            sdc = self.get_motion(frames, masks, bboxes)
+            if sdc is not None:
+                VIO.save_video(list(sdc), stage_path("sdc.mp4"),
+                               cfg.target_fps)
+
+        if not (resume and os.path.exists(stage_path("bk.mp4"))):
+            bk = self.get_bk_recover(frames, masks)
+            if bk is not None:
+                VIO.save_video(list(bk), stage_path("bk.mp4"),
+                               cfg.target_fps)
+
+        occ = self.get_occ(frames, masks, sdc)
+        if occ is not None:
+            save_masks(occ, "occ.mp4")
+
+        config = {
+            "fps": cfg.target_fps,
+            "time_crop": {"start_idx": 0, "end_idx": len(frames)},
+            "frame_crop": None,
+            "layer_recover": True,
+        }
+        with open(stage_path("config.json"), "w") as f:
+            json.dump(config, f)
+        result["num_frames"] = len(frames)
+        result["elapsed_s"] = time.time() - t_start
+        return result

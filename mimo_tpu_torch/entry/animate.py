@@ -2,7 +2,7 @@
 white background, global human crop, raw pipeline output.
 
 Counterpart of ``mimo_tpu/entry/animate.py``. ``animate`` takes a template
-directory or the sdc pose frames already in memory (which needs no OpenCV).
+directory or the sdc pose frames already in memory.
 
 CLI: python -m mimo_tpu_torch.entry.animate --ref ref.png --template dir/ \
         --output out.mp4 [--weights bundle.npz] [--W 784 --H 784 ...]

@@ -4,10 +4,9 @@ overlap cross-fade.
 
 Counterpart of ``mimo_tpu/entry/edit.py``, with one API difference:
 ``edit`` takes a template directory or a ``Template`` already in memory
-(as ``entry.animate.animate`` takes pose frames), so it runs where there is
-no OpenCV to decode the template's videos. Without OpenCV the paste-back's
-resizes go through ``utils.frames.resize_frame``'s torch path, so the
-output differs from an OpenCV run by that resize's rounding
+(as ``entry.animate.animate`` takes pose frames). Without OpenCV the
+paste-back's resizes go through ``utils.frames.resize_frame``'s torch path,
+so the output differs from an OpenCV run by that resize's rounding
 (``tests/test_torch_frames.py::test_resize_without_cv2_close_to_cv2``
 bounds it). The paste-back stays numpy on the host, as in the reference.
 

@@ -9,7 +9,7 @@ the port has no transposed compute and no block arguments.
 
 Each wrapper takes the plain version for CPU tensors only. For a CUDA tensor
 it launches the kernel or raises. ``<wrapper>.launches`` counts kernel
-launches; ``flash_attention_nt.widths`` counts them by head width.
+launches; ``<wrapper>.widths`` counts them by head width.
 """
 
 from __future__ import annotations
@@ -125,9 +125,11 @@ def flash_attention_nt_bank(q: torch.Tensor, k: torch.Tensor,
         return attention_plain(q, k, v, heads, kb, vb)
     out = _flash_cuda(q, k, v, kb, vb, heads)
     flash_attention_nt_bank.launches += 1
+    flash_attention_nt_bank.widths[q.shape[2] // heads] += 1
     return out
 
 
 flash_attention_nt.launches = 0
 flash_attention_nt.widths = Counter()
 flash_attention_nt_bank.launches = 0
+flash_attention_nt_bank.widths = Counter()

@@ -178,7 +178,8 @@ def test_dispatcher_help_and_unknown(capsys):
 @pytest.mark.parametrize("cmd,module", [
     ("animate", "mimo_tpu_torch.entry.animate"),
     ("edit", "mimo_tpu_torch.entry.edit"),
-    ("serve", "mimo_tpu_torch.serving.app")])
+    ("serve", "mimo_tpu_torch.serving.app"),
+    ("decomp", "mimo_tpu_torch.decomp.factory")])
 def test_dispatcher_routes(cmd, module, monkeypatch):
     import importlib
     seen = []
@@ -188,8 +189,7 @@ def test_dispatcher_routes(cmd, module, monkeypatch):
     assert seen == [["--ref", "r.png"]]
 
 
-@pytest.mark.parametrize("cmd,item", [("decomp", "item 2"),
-                                      ("bench", "item 1")])
+@pytest.mark.parametrize("cmd,item", [("bench", "item 1")])
 def test_dispatcher_not_ported(cmd, item, capsys):
     with pytest.raises(SystemExit) as e:
         M.main([cmd])
