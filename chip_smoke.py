@@ -138,17 +138,46 @@ Phases, in order; any failure exits non-zero:
    each must launch every main-path kernel; 24 uint8
    784x512 frames that are not constant; 48 uint8 720x480 edited frames
    equal to bk within 1 outside the shots' bboxes (and the occlusion mask);
-11. the kernels' JSON line (``launches`` from the run of the entry's
+11. the multi-process layer through ``mimo_tpu_torch.entry.graft``'s
+   spawner (``torch.multiprocessing`` in spawn mode, every rank on this
+   card: NCCL refuses two ranks on one card, so worlds of 2 and 4 run over
+   gloo): (a) the frame-parallel flagship (``MIMOConfig()``, phase 5's
+   24-frame 512x784 clip, CFG 3.5, 2 DDIM steps, one window; the motion
+   modules' all-to-all) on 2 ranks, rank 0's video against the single
+   process within the limit of ``--calibrate multi``, a second run equal
+   in every bit, and rank 0's launches of every main-path kernel > 0; (b)
+   window DP on phase 5's 41-frame 256x256 clip (two window-parallel
+   windows and the frame-sharded tail), within that limit, each rank's
+   UNet window-frames showing no padded window; (c) (a) on an NCCL world
+   of 1, equal in every bit to the single process and to its own second
+   run; (d) the 2-D (2, 2) mesh on (b)'s clip, within the limit; (e) the
+   motion stage (phase 8's models) frame-parallel on 2 ranks on phase 7's
+   48 frames and a ragged 47, in fp32: the posed vertices within 1e-5 of
+   the single process's, the frame-parallel render of one vertex set and
+   the sharded sdc equal to single-process renders in every bit, and the
+   sdc within one uint8 level of the single process's but at pixels on a
+   face edge or a depth tie (the nearest two faces' depths, from the
+   renderer's own tests, within 1e-6 of the depth), where the vertices'
+   rounding can flip them, and at most 300 such pixels; and in bf16: the
+   render of one vertex set equal in every bit, the vertices and the share
+   of pixels past one level within the limit of ``--calibrate multi``.
+   Prints each run's prepare / step / decode times, all-to-all bytes and
+   seconds a step, peak memory per rank and the phase's wall time; any
+   rank's failure fails the script;
+12. the kernels' JSON line (``launches`` from the run of the entry's
    ``path``: phase 5, 6 or the tool's run of phase 4; the "decomp" path's
    flash entries count their head width's launches in phases 7 and 9; under
    "decomp-run" one row a kernel launched in phase 10, a flash wrapper's
-   one a head width, with its phase-10 launches), then the last line:
+   one a head width, with its phase-10 launches; under "frame-parallel"
+   phase 3's temporal chain at the positions a rank holds and one row a
+   kernel with rank 0's launches in phase 11 (a)), then the last line:
    {"ok": true, "device": {...}}.
 
-``python3 chip_smoke.py --calibrate [main] [decomp] [motion] [bk]`` runs
-phases 1-2, then the readings that place the limits of the small-input
-agreement checks of phases 5, 7, 8 and 9 (sound seeds and planted faults;
-all four without a section named), and prints no result line.
+``python3 chip_smoke.py --calibrate [main] [decomp] [motion] [bk] [multi]``
+runs phases 1-2, then the readings that place the limits of the
+small-input agreement checks of phases 5, 7, 8 and 9 and of phase 11
+(sound seeds and planted faults; all five without a section named), and
+prints no result line.
 ``python3 chip_smoke.py --kernels`` runs phases 1-3 and the GEMM tile
 core's breakdown (each launch of the FFN and of q|k|v timed alone, beside
 variants that drop one piece of the work and beside torch.matmul of the
@@ -191,6 +220,8 @@ FLASH_ROUNDS = 5     # interleaved kernel / SDPA rounds of phase 3
 EDIT_FRAMES, EDIT_SRC, EDIT_SIZE, EDIT_STEPS = 48, (720, 1280), 784, 3
 EDIT_MAX_FRAMES = 150   # the edit CLI's default --max-frames
 EDIT_S = (9604, 2401, 625, 169)
+# the temporal chain's (S, C) a rank on phase 11's frame-parallel path
+FRAME_PARALLEL_S = ((3136, 320), (784, 640), (200, 1280), (52, 1280))
 
 
 def log(msg: str) -> None:
@@ -778,6 +809,9 @@ def gemm_chain_cases(FF, TA, randn):
     # then at 784x784
     levels = list(zip((6272, 1568, 400, 104) + EDIT_S,
                       (320, 640, 1280, 1280) * 2))
+    # and the frame-parallel path's positions a rank (phase 11 (a): S / 2
+    # at levels 0-3)
+    levels += FRAME_PARALLEL_S
     for s, c in levels:
         x = randn(2, 24, s, c, scale=2.0)
         attn = {k: lin(c, c, bias=False) for k in ("to_q", "to_k", "to_v")}
@@ -799,7 +833,9 @@ def gemm_chain_cases(FF, TA, randn):
             lambda: TA.temporal_attention_ln(*args),
             lambda: TA.temporal_attention_plain(*args), work,
             ("no single call: LN + PE, two products and an F x F softmax "
-             "attention", None), "edit" if s in EDIT_S else "animate"))
+             "attention", None),
+            "edit" if s in EDIT_S else "frame-parallel"
+            if (s, c) in FRAME_PARALLEL_S else "animate"))
     return entries
 
 
@@ -2606,6 +2642,547 @@ def phase_decomp_run(work):
             widths + a_widths + e_widths)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-process layer (entry/graft.py's spawner)
+# ---------------------------------------------------------------------------
+
+MULTI_STEPS = 2             # DDIM steps of phase 11's generations
+DP_CLIP = (41, 256)         # phase 5's window clip: three 24-frame windows
+
+
+def multi_tol():
+    from mimo_tpu_torch.entry import graft
+    return graft.MULTI_TOL
+
+
+def plant(fault):
+    """A planted fault of ``--calibrate multi`` in this rank: "local PE"
+    (the motion modules' temporal PE over the rank's own frames, repeated),
+    "reversed a2a" (the received blocks concatenated in reverse rank
+    order) or "reversed gather" (``comm.all_gather``'s blocks in reverse
+    rank order: the frame-parallel forwards' and render's outputs)."""
+    if fault is None:
+        return contextlib.nullcontext()
+    import torch.distributed as dist
+    from mimo_tpu_torch.models import unet as U
+    from mimo_tpu_torch.parallel import comm
+    n = dist.get_world_size()
+    if fault == "local PE":
+        pe = U._temporal_pe
+        return patched(U, "_temporal_pe", lambda f, dim, dtype, device: pe(
+            f // n, dim, dtype, device).repeat(n, 1))
+    if fault == "reversed gather":
+        gather = comm.all_gather
+
+        def reversed_gather(x, group, axis=0):
+            y = gather(x, group, axis)
+            return torch.cat(y.chunk(n, dim=axis)[::-1], dim=axis)
+
+        return patched(comm, "all_gather", reversed_gather)
+    a2a = comm.all_to_all
+
+    def reversed_blocks(x, group, split_axis, concat_axis):
+        y = a2a(x, group, split_axis, concat_axis)
+        return torch.cat(y.chunk(n, dim=concat_axis)[::-1], dim=concat_axis)
+
+    return patched(comm, "all_to_all", reversed_blocks)
+
+
+def motion_weights(params, dev, seed: int = 1000):
+    """The denoising UNet's motion modules with seeded output projections
+    (N(0, 1/C) kernels, zero bias) in place of their zero init, so that the
+    temporal attention, and the all-to-all around it, reach the video.
+    Drawn the same in every process from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    den = params["denoising_unet"]
+    for blk in den["down"] + den["up"] + [den["mid"]]:
+        for mm in blk["motions"] or []:
+            k = mm["proj_out"]["kernel"]
+            c = k.shape[0]
+            k.copy_(torch.randn((c, c), generator=gen, device=dev) * c ** -0.5)
+    return params
+
+
+def multi_animate(dev, runners, task):
+    """One phase-11 generation task on this rank: ``task["runs"]`` calls of
+    ``animate`` through a Runner sharded as ``task["mesh"]`` /
+    ``task["axes"]``; the kernel counts, the peak memory, the all-to-all
+    bytes and seconds and the UNet's window-frames are those of the last
+    run. Rank 0 returns the last video (bf16, as the pipeline made it)."""
+    import torch.distributed as dist
+    from mimo_tpu_torch import config as C
+    from mimo_tpu_torch.entry import graft
+    from mimo_tpu_torch.entry.animate import animate
+    from mimo_tpu_torch.entry.runner import Runner, init_random_params
+    from mimo_tpu_torch.parallel import comm
+    from mimo_tpu_torch.parallel.mesh import ProcessMesh
+    seed = task.get("weights_seed", 0)
+    if seed not in runners:
+        runners.clear()
+        torch.cuda.empty_cache()
+        cfg = C.MIMOConfig()
+        runners[seed] = (cfg, motion_weights(init_random_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed),
+            dtype=torch.bfloat16), dev))
+    cfg, params = runners[seed]
+    runner = Runner(cfg=cfg, params=params, device=dev, dtype=torch.bfloat16,
+                    mesh=ProcessMesh(*task["mesh"], dev), **task["axes"])
+    frames, size = task["clip"]
+    ref, clip = template_frames(frames)
+    kw = dict(width=size[1], height=size[0], steps=MULTI_STEPS,
+              cfg_scale=3.5, seed=task["seed"])
+    videos = []
+    with plant(task.get("fault")):
+        for i in range(task["runs"]):
+            if i == task["runs"] - 1:
+                counters = reset_counts()
+                torch.cuda.reset_peak_memory_stats(dev)
+            with comm.measure() as a2a, \
+                    graft.count_window_frames() as unet_frames:
+                t0 = time.perf_counter()
+                videos.append(animate(runner, ref, clip, **kw))
+                wall = time.perf_counter() - t0
+    out = dict(timings=dict(runner.last_timings), wall=wall,
+               a2a_bytes=a2a.bytes, a2a_calls=a2a.calls,
+               a2a_s=a2a.seconds(),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               unet_frames=unet_frames[0],
+               launches={fn.__name__: fn.launches for fn in counters},
+               widths=flash_widths(),
+               repeat_equal=all(np.array_equal(videos[0], v)
+                                for v in videos[1:]))
+    if dist.get_rank() == 0:
+        out["video"] = torch.from_numpy(videos[-1]).bfloat16()
+    return out
+
+
+def multi_motion(dev, task):
+    """Phase 8's motion stage (seeded full-width ViTPose-H, HMR2, HaMeR,
+    ``framed_bodies``) in ``task["dtype"]``, built with a "data" mesh over
+    the world, on phase 7's clip and boxes cut to each of
+    ``task["frames"]``; rank 0 also runs the single-process estimator on
+    the same models and returns ``sdc_stats``' readings of the two. In
+    bf16 every rank also runs the single-process posed vertices twice and
+    returns their max difference (``repeat``): they have not always
+    repeated (ROADMAP Queue 3)."""
+    import torch.distributed as dist
+    from mimo_tpu_torch.decomp import factory as FA
+    from mimo_tpu_torch.parallel import comm
+    from mimo_tpu_torch.parallel.decomp import render_frames_sharded
+    from mimo_tpu_torch.parallel.mesh import get_mesh
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    dtype = getattr(torch, task["dtype"])
+    params = framed_bodies({
+        name: FA.load_params(None, name, cfg, dev, dtype,
+                             task.get("weights_seed", 0))
+        for name, cfg in zip(FA.BUNDLES, FA.configs(tiny=False))
+        if name in PD.STAGE_BUNDLES["motion"]})
+    mesh = get_mesh(device=dev)
+    sharded = FA.build_decomp_models(params=params, device=dev, mesh=mesh)
+    est_sh = sharded.estimate_motion.__self__
+    est_1 = FA.build_decomp_models(params=params,
+                                   device=dev).estimate_motion.__self__
+    frames, masks, boxes = PD.synth_frames(*PD.CLIP)
+    h, w = frames[0].shape[:2]
+    center = torch.tensor([w / 2.0, h / 2.0], device=dev)
+    out = {}
+    for t in task["frames"]:
+        clip = (frames[:t], masks[:t], boxes[:t])
+        with plant(task.get("fault")):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            sdc = sharded.estimate_motion(*clip)
+            out[t] = dict(seconds=time.perf_counter() - t0)
+            verts = est_sh.posed_vertices(clip[0], clip[2])
+        own = est_1.posed_vertices(clip[0], clip[2])
+        if dtype != torch.float32:
+            again = est_1.posed_vertices(clip[0], clip[2])
+            out[t]["repeat"] = comm.all_gather(
+                (own - again).abs().max()[None].float(), mesh.group("data"))
+        verts1 = comm.broadcast(own, mesh.group("data"), src=0)
+        # every rank renders its frames of rank 0's single-process vertices
+        shared = render_frames_sharded(
+            verts1, est_1._faces, est_1._colors, est_1.focal, center,
+            height=h, width=w, mesh=mesh)
+        if dist.get_rank() == 0:
+            out[t].update(sdc_stats(est_1, verts, verts1, sdc, shared,
+                                    center, h, w))
+    return dict(runs=out)
+
+
+def depth_gaps(verts, faces, focal, center, h, w):
+    """(T, H, W): at each pixel the gap between the nearest face's depth
+    and the next-nearest other face's, from the renderer's own candidate
+    tests and fp32 depths (inf where fewer than two faces cover it): a
+    pixel whose two nearest faces are that close can change face when
+    the vertices round differently."""
+    from mimo_tpu_torch.decomp import renderer as R
+    faces = torch.as_tensor(faces, device=verts.device).long()
+    n_faces = faces.shape[0]
+    keys = []
+    for rank in range(2):
+        zbuf = torch.full((verts.shape[0] * h * w,), R._NO_HIT,
+                          dtype=torch.int64, device=verts.device)
+        for item, pix, w0, w1, w2, z in R.candidates(
+                verts, faces, focal, center, height=h, width=w):
+            key = (z.view(torch.int32).long() << 32) | (item % n_faces)
+            keep = (w0 >= 0) & (w1 >= 0) & (w2 >= 0)
+            if rank:      # every face but the pixel's nearest
+                keep &= (key & 0xFFFFFFFF) != (keys[0][pix] & 0xFFFFFFFF)
+            zbuf.scatter_reduce_(0, pix[keep], key[keep], reduce="amin")
+        keys.append(zbuf)
+    depth = [(k >> 32).to(torch.int32).view(torch.float32) for k in keys]
+    gap = torch.where(keys[1] != R._NO_HIT, depth[1] - depth[0],
+                      torch.full_like(depth[0], float("inf")))
+    return gap.reshape(verts.shape[0], h, w)
+
+
+def sdc_stats(est, verts, verts1, sdc, shared, center, h, w):
+    """Phase 11 (e)'s readings on rank 0: the sharded and single-process
+    posed vertices' max difference; whether the frame-parallel render of
+    the single process's vertices (``shared``) equals their single-process
+    render, and whether the sharded ``estimate_motion``'s sdc equals the
+    single-process render of the sharded vertices, in every bit; the
+    pixels where the two processes' sdcs differ by more than one level, as
+    a share of the pixels either covers, and of them those on a face edge
+    (``near_edges`` of either vertex set), those on a depth tie (in either
+    render the nearest two faces' depths within TIE_REL of the depth,
+    ``depth_gaps``) and the rest; and the largest depth gap, relative to
+    the depth, of a pixel past one level off the edges."""
+    from mimo_tpu_torch.decomp import renderer as R
+
+    def render(v):
+        return R.render_frames(v, est._faces, est._colors, est.focal, center,
+                               height=h, width=w)
+
+    def quantize(rgb, alpha):       # as MotionEstimator.estimate_motion
+        return ((rgb * alpha[..., None]).clamp(0, 1) * 255).to(torch.uint8)
+
+    rgb_s, a_s, d_s = render(verts)
+    rgb_1, a_1, d_1 = render(verts1)
+    sdc_s, sdc_1 = quantize(rgb_s, a_s), quantize(rgb_1, a_1)
+    past = (sdc_s.int() - sdc_1.int()).abs().amax(-1) > 1
+    edge = (near_edges(verts, est._faces, est.focal, center, h, w)
+            | near_edges(verts1, est._faces, est.focal, center, h, w))
+    depth = torch.where(a_1 > 0, d_1, d_s)
+    gap = torch.minimum(
+        depth_gaps(verts.float(), est._faces, est.focal, center, h, w),
+        depth_gaps(verts1.float(), est._faces, est.focal, center, h, w))
+    rel = gap / depth.clamp(min=1e-6)
+    tie = rel <= TIE_REL
+    off_edges = past & ~edge
+    return dict(
+        verts_d=float((verts - verts1).abs().max()),
+        render_equal=all(torch.equal(a, b)
+                         for a, b in zip(shared, render(verts1))),
+        sdc_equal=bool(np.array_equal(sdc, sdc_s.cpu().numpy())),
+        past=int(past.sum()), on_edges=int((past & edge).sum()),
+        on_ties=int((off_edges & tie).sum()),
+        unexplained=int((off_edges & ~tie).sum()),
+        tie_rel_max=float(rel[off_edges].max()) if off_edges.any() else 0.0,
+        share=float(past.sum() / ((a_s > 0) | (a_1 > 0)).sum()),
+        max_delta=int((sdc_s.int() - sdc_1.int()).abs().max()),
+        shape=tuple(sdc.shape), covered=float(a_1.mean()))
+
+
+# phase 11 (e), fp32: the posed vertices (m); a depth tie (``depth_gaps``,
+# relative to the depth: the widest of the 54 ties read was 8.73e-8); the
+# pixels past one level a run may excuse on edges and ties (56 read at 48
+# and at 47 frames)
+VERTS_TOL, TIE_REL, EXCUSED_MAX = 1e-5, 1e-6, 300
+# phase 11 (e), bf16 (the production precision), where rounding that
+# depends on the batch moves the vertices by mm: the vertices' max
+# difference (m) and the share of the covered pixels past one level,
+# between the sound weight seeds (0.0030-0.0045 m, 0.0203-0.0226) and the
+# gathered blocks reversed (0.149 m, 0.790) of ``--calibrate multi``
+BF16_MOTION_TOL = (0.02, 0.05)
+
+
+def check_sdc(t, res, dtype):
+    """Phase 11 (e): the frame-parallel motion stage against the single
+    process (``sdc_stats``). fp32: the posed vertices within VERTS_TOL
+    (the forwards on 24 crops a rank and on the whole clip round
+    differently), both renders equal in every bit, no pixel of the two
+    sdcs more than one level apart off the faces' edges and depth ties,
+    and at most EXCUSED_MAX there. bf16: the render of one vertex set
+    equal in every bit, the vertices and the share of pixels past one
+    level within BF16_MOTION_TOL."""
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    _, h, w = PD.CLIP
+    fp32 = dtype == "float32"
+    excused = res["on_edges"] + res["on_ties"]
+    log(f"  (e) motion stage frame-parallel ({dtype}), {t} frames over 2 "
+        f"ranks: {res['seconds']:.2f} s (rank 0); posed vertices max |d| "
+        f"{res['verts_d']:.3g} m (limit "
+        f"{VERTS_TOL if fp32 else BF16_MOTION_TOL[0]}); the frame-parallel "
+        f"render of the single process's vertices "
+        f"{'equal' if res['render_equal'] else 'NOT equal'} to its "
+        f"single-process render, the sharded sdc "
+        f"{'equal' if res['sdc_equal'] else 'NOT equal'} to the render of "
+        f"its vertices (every bit); vs the single process's sdc: max uint8 "
+        f"delta {res['max_delta']}, {res['past']} pixels past 1 (share "
+        f"{res['share']:.4g} of the covered"
+        + ("" if fp32 else f", limit {BF16_MOTION_TOL[1]}") +
+        f"): {res['on_edges']} on a face edge, {res['on_ties']} on a depth "
+        f"tie (largest gap {res['tie_rel_max']:.3g} of the depth, limit "
+        f"{TIE_REL}), {res['unexplained']} elsewhere"
+        + (f" (limits: {EXCUSED_MAX} excused, 0 elsewhere)" if fp32 else "")
+        + f"; covered share {res['covered']:.4f}"
+        + ("" if fp32 else f"; single-process vertices twice, max |d| a "
+           f"rank: {[round(float(x), 6) for x in res['repeat']]}"))
+    ok = res["shape"] == (t, h, w, 3) and res["render_equal"]
+    if fp32:
+        ok &= (res["sdc_equal"] and res["verts_d"] <= VERTS_TOL
+               and not res["unexplained"] and excused <= EXCUSED_MAX)
+    else:
+        ok &= (res["verts_d"] <= BF16_MOTION_TOL[0]
+               and res["share"] <= BF16_MOTION_TOL[1])
+    if not ok:
+        raise AssertionError(f"(e) {dtype}: the frame-parallel motion stage "
+                             f"disagrees")
+
+
+def multi_body(dev, tasks):
+    """Phase 11's rank body: the tasks in order (one weight set kept)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runners = {}
+    out = []
+    for task in tasks:
+        t0 = time.perf_counter()
+        if task["kind"] == "animate":
+            res = multi_animate(dev, runners, task)
+        else:
+            runners.clear()
+            torch.cuda.empty_cache()
+            res = multi_motion(dev, task)
+        out.append(dict(res, task_s=time.perf_counter() - t0))
+    return out
+
+
+def window_shape(frames):
+    """(windows, frames a window) of a clip at MIMOConfig()'s context."""
+    from mimo_tpu_torch import config as C
+    from mimo_tpu_torch.pipelines import pose2vid
+    st = pose2vid.Pose2VideoStatic(cfg=C.MIMOConfig(), num_frames=frames,
+                                   height=8, width=8, num_inference_steps=1,
+                                   guidance_scale=3.5)
+    return pose2vid.make_windows(st)[0].shape
+
+
+def agreement(got, want):
+    err = np.abs(np.asarray(got, np.float64) - want)
+    return float(err.max()), float(err.mean())
+
+
+def single_videos(tasks):
+    """The single-process videos of the animate tasks, in this process
+    (full-width weights of each task's seed, as the ranks draw them)."""
+    from mimo_tpu_torch import config as C
+    from mimo_tpu_torch.entry.animate import animate
+    from mimo_tpu_torch.entry.runner import Runner, init_random_params
+    dev = torch.device("cuda")
+    cfg = C.MIMOConfig()
+    out, runner = {}, None
+    for task in tasks:
+        seed = task.get("weights_seed", 0)
+        if runner is None or runner[0] != seed:
+            runner = None
+            torch.cuda.empty_cache()
+            runner = (seed, Runner(cfg=cfg, params=motion_weights(
+                init_random_params(cfg, torch.Generator(
+                    device=dev).manual_seed(seed), dtype=torch.bfloat16),
+                dev), device=dev, dtype=torch.bfloat16))
+        frames, size = task["clip"]
+        ref, clip = template_frames(frames)
+        key = (seed, task["seed"], frames, size)
+        if key not in out:
+            out[key] = animate(runner[1], ref, clip, width=size[1],
+                               height=size[0], steps=MULTI_STEPS,
+                               cfg_scale=3.5, seed=task["seed"])
+    del runner
+    torch.cuda.empty_cache()
+    return out
+
+
+def flagship_task(seed=42, **kw):
+    """Phase 11 (a)'s generation: phase 5's 24-frame 512x784 clip, CFG 3.5,
+    one window, frame-parallel over a world-wide "data" axis."""
+    return dict(kind="animate", clip=(FRAMES, (HEIGHT, WIDTH)), seed=seed,
+                axes=dict(frame_axis="data"), **kw)
+
+
+def log_run(label, res, world):
+    tm = res["timings"]
+    steps = max(1, MULTI_STEPS)
+    log(f"  {label}: prepare {tm['prepare']:.1f} ms | mean step "
+        f"{tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms (CUDA "
+        f"events, rank 0) | {res['wall']:.2f} s wall | all-to-all "
+        f"{res['a2a_bytes'] / steps / 1e9:.4f} GB sent and "
+        f"{res['a2a_s'] / steps:.4f} s a step, {res['a2a_calls']} calls | "
+        f"UNet window-frames {res['unet_frames']} | peak "
+        f"{res['peak_gib']:.2f} GiB | world {world}")
+
+
+def phase_multi():
+    """Phase 11: the multi-process layer through ``entry/graft.py``'s
+    spawner, every rank on this card (NCCL refuses two ranks on one card,
+    so worlds of 2 and 4 run over gloo, and NCCL at a world of 1):
+    (a) the frame-parallel flagship and (b) window DP with the hybrid tail,
+    world 2; (c) (a) on NCCL, world 1; (d) 2-D, world 4; (e) the
+    decomposition's motion stage, world 2. Returns rank 0's kernel launches
+    and flash launches by head width of (a)'s second run."""
+    log("== phase 11: multi-process layer (torch.distributed, every rank on "
+        "this card)")
+    from mimo_tpu_torch.entry import graft
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    t_phase = time.perf_counter()
+    mx_tol, mean_tol = multi_tol()
+    flag = flagship_task(mesh=((2,), ("data",)), runs=2)
+    dp = dict(kind="animate", clip=(DP_CLIP[0], (DP_CLIP[1], DP_CLIP[1])),
+              seed=7, mesh=((2,), ("data",)), axes=dict(mesh_axis="data"),
+              runs=1)
+    two_d = dict(dp, mesh=((2, 2), ("data", "frame")),
+                 axes=dict(mesh_axis="data", frame_axis="frame",
+                           pad_windows_to=2))
+    t0 = time.perf_counter()
+    single = single_videos([flag, dp])
+    log(f"  single-process references ((a) and (b), this process): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def check_video(label, res, task, limit=True):
+        frames, size = task["clip"]
+        want = single[(task.get("weights_seed", 0), task["seed"], frames,
+                       size)]
+        got = res["video"].float().numpy()
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: video {got.shape}")
+        mx, mean = agreement(got, want)
+        ok = mx <= mx_tol and mean <= mean_tol if limit else mx == 0
+        log(f"  {label} vs the single process: max_abs_err={mx:.4g} "
+            f"mean_abs_err={mean:.4g} ("
+            + (f"limit max <= {mx_tol}, mean <= {mean_tol}: between the "
+               f"sound seeds and the planted faults of --calibrate multi"
+               if limit else "must be equal in every bit")
+            + f") {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} disagrees with the single process")
+
+    # (a), (b), (e): one world of 2 over gloo
+    t0 = time.perf_counter()
+    # phase 7's 48 frames, then a ragged 47, in fp32 and in bf16
+    motion = [dict(kind="motion", frames=(PD.CLIP[0], PD.CLIP[0] - 1),
+                   dtype=dtype) for dtype in ("float32", "bfloat16")]
+    ranks = graft.spawn(multi_body, 2, backend="gloo", device="cuda:0",
+                        args=([flag, dp] + motion,))
+    log(f"  world 2 (gloo, both ranks on cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s wall, tasks "
+        f"{[round(r['task_s'], 1) for r in ranks[0]]} s")
+    a = ranks[0][0]
+    log_run(f"(a) frame-parallel {FRAMES}x{HEIGHT}x{WIDTH}, run 2, rank 0",
+            a, 2)
+    log_run("(a) rank 1", ranks[1][0], 2)
+    check_video("(a) rank 0's video", a, flag)
+    if not all(r[0]["repeat_equal"] for r in ranks):
+        raise AssertionError("(a): two runs differ")
+    log(f"  (a) second run equal in every bit to the first on both ranks")
+    log(f"  (a) rank 0's kernel launches in run 2: {a['launches']}")
+    for name, count in a["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"(a): the frame-parallel path never "
+                                 f"launched {name}")
+    b = [r[1] for r in ranks]
+    log_run(f"(b) window DP + hybrid tail {DP_CLIP[0]}x{DP_CLIP[1]}x"
+            f"{DP_CLIP[1]}, rank 0", b[0], 2)
+    check_video("(b) rank 0's video", b[0], dp)
+    # each rank runs its share of the even chunk and its half of the tail
+    # window's frames a step (three windows of 24: 24 + 12), where padding
+    # the windows to an even count would run whole windows
+    wn, cs = window_shape(DP_CLIP[0])
+    even = max(2, wn - wn % 2)
+    want_frames = MULTI_STEPS * (even // 2 * cs + (wn - even) * cs // 2)
+    log(f"  (b) UNet window-frames a rank: {[r['unet_frames'] for r in b]} "
+        f"({wn} windows of {cs}: its windows and half the tail's frames a "
+        f"step, {want_frames} in all; padding to {-(-wn // 2) * 2} windows "
+        f"would run {MULTI_STEPS * -(-wn // 2) * cs})")
+    if any(r["unet_frames"] != want_frames for r in b):
+        raise AssertionError("(b): a rank ran a padded window")
+    for task, res in zip(motion, ranks[0][2:]):
+        for t, run in res["runs"].items():
+            check_sdc(t, run, task["dtype"])
+
+    # (c): (a) on NCCL, a world of 1
+    t0 = time.perf_counter()
+    c, probe = graft.spawn(graft.bodies, 1, backend="nccl", device="cuda",
+                           args=([(multi_body, ([flagship_task(
+                               mesh=((1,), ("data",)), runs=2)],)),
+                                  (graft.probe_body, ())],))[0]
+    c = c[0]
+    log(f"  world 1 (NCCL): {time.perf_counter() - t0:.1f} s wall; each "
+        f"collective called on CUDA tensors (the generation, at world 1, "
+        f"calls none): {probe}")
+    if any(v != "ok" for v in probe.values()):
+        raise AssertionError("(c): an NCCL collective failed")
+    log_run("(c) NCCL world 1, run 2", c, 1)
+    check_video("(c) the NCCL run's video", c, flag, limit=False)
+    if not c["repeat_equal"]:
+        raise AssertionError("(c): two runs differ")
+
+    # (d): 2-D, a world of 4
+    t0 = time.perf_counter()
+    d4 = graft.spawn(multi_body, 4, backend="gloo", device="cuda:0",
+                     args=([two_d],))
+    log(f"  world 4 (gloo, every rank on cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    log_run(f"(d) 2-D (2, 2) {DP_CLIP[0]}x{DP_CLIP[1]}x{DP_CLIP[1]}, rank 0",
+            d4[0][0], 4)
+    check_video("(d) rank 0's video", d4[0][0], two_d)
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s wall")
+    return a["launches"], a["widths"]
+
+
+def multi_calibrate() -> None:
+    """Phase 11's readings, on a world of 2: (a)'s frame-parallel flagship
+    against the single process over sound seeds (weights and noise) and
+    with a planted fault in the ranks (the temporal PE over the rank's own
+    frames; the all-to-all's blocks in reverse rank order); then (e)'s bf16
+    motion stage at 48 frames over sound weight seeds and with the
+    gathered blocks in reverse rank order."""
+    from mimo_tpu_torch.entry import graft
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    log("== calibrate: frame-parallel flagship (world 2, gloo) vs the single "
+        "process")
+    tasks = [flagship_task(mesh=((2,), ("data",)), runs=1, weights_seed=s,
+                           seed=s) for s in (7, 8, 9, 10, 11)]
+    tasks += [flagship_task(mesh=((2,), ("data",)), runs=1, weights_seed=7,
+                            seed=7, fault=f)
+              for f in ("local PE", "reversed a2a")]
+    motion = [dict(kind="motion", frames=(PD.CLIP[0],), dtype="bfloat16",
+                   weights_seed=s) for s in (0, 1, 2, 3)]
+    motion += [dict(motion[0], fault="reversed gather")]
+    single = single_videos(tasks)
+    ranks = graft.spawn(multi_body, 2, backend="gloo", device="cuda:0",
+                        args=(tasks + motion,))
+    for task, res in zip(tasks, ranks[0]):
+        mx, mean = agreement(res["video"].float().numpy(), single[(
+            task["weights_seed"], task["seed"], *task["clip"])])
+        name = (f"fault '{task['fault']}' seed {task['seed']}"
+                if task.get("fault") else f"sound seed {task['seed']}")
+        log(f"  {name}: max_abs_err={mx:.4g} mean_abs_err={mean:.4g}")
+    log("== calibrate: (e) bf16 motion stage (world 2, gloo) vs the single "
+        "process")
+    for task, res in zip(motion, ranks[0][len(tasks):]):
+        run = res["runs"][PD.CLIP[0]]
+        name = (f"fault '{task['fault']}' weights seed "
+                f"{task['weights_seed']}" if task.get("fault")
+                else f"sound weights seed {task['weights_seed']}")
+        log(f"  {name}: vertices max |d| {run['verts_d']:.4g} m, share past "
+            f"one level {run['share']:.4g} ({run['past']} pixels: "
+            f"{run['on_edges']} on edges, {run['on_ties']} on ties, "
+            f"{run['unexplained']} elsewhere), max delta {run['max_delta']}, "
+            f"single-process repeat {[float(x) for x in run['repeat']]}")
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the main path (each counts its launches)."""
     from mimo_tpu_torch.ops import ffn as FF
@@ -2653,9 +3230,9 @@ def patched(module, name, value):
 
 def calibrate(sections=()) -> None:
     """Readings that place the limits of the small-input agreement checks
-    (``sections``: any of "main", "decomp", "motion", "bk"; all if
+    (``sections``: any of "main", "decomp", "motion", "bk", "multi"; all if
     empty)."""
-    sections = set(sections) or {"main", "decomp", "motion", "bk"}
+    sections = set(sections) or {"main", "decomp", "motion", "bk", "multi"}
     if "bk" in sections:
         bk_calibrate()
     if "main" in sections:
@@ -2664,6 +3241,8 @@ def calibrate(sections=()) -> None:
         decomp_calibrate()
     if "motion" in sections:
         motion_calibrate()
+    if "multi" in sections:
+        multi_calibrate()
 
 
 def main_calibrate() -> None:
@@ -2850,6 +3429,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work, \
             without_opencv():
         run_launches, run_widths = phase_decomp_run(work)
+    torch.cuda.empty_cache()
+    launches["frame-parallel"], fp_widths = phase_multi()
 
     def row(e, path, count):
         return {"name": e["name"], "route": e["route"],
@@ -2860,26 +3441,35 @@ def main() -> None:
                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                 "library": e["library"]}
 
-    log("== phase 11: the kernels' JSON line")
+    log("== phase 12: the kernels' JSON line")
     kernels = []
     for e in entries + ablation:
         kernels.append(row(e, e["path"], widths[e["width"]]
                            if e["path"] == "decomp" and "width" in e
                            else launches[e["path"]][e["name"]]))
-    # phase 10's decomposition run, animate and edit: one row a kernel
-    # (a flash wrapper's at each head width it launched there), with the
-    # numbers of its first phase-3 case and its launches in phase 10
-    run_rows = {}
-    for e in entries:
-        key = (e["name"], e["width"]) if "width" in e else e["name"]
-        count = run_widths[key] if "width" in e else run_launches[key]
-        if count and key not in run_rows:
-            run_rows[key] = row(e, "decomp-run", count)
-    unchecked = set(run_widths) - set(run_rows)
-    if unchecked:
-        raise AssertionError(f"phase 10 launched flash at {unchecked}, which "
-                             f"no phase-3 case checks")
-    kernels += run_rows.values()
+
+    def path_rows(path, counts, path_widths):
+        # one row a kernel the run launched (a flash wrapper's at each head
+        # width it launched), with the numbers of its first phase-3 case
+        # and its launches in the run; a kernel with phase-3 cases of the
+        # path's own shapes has its rows above
+        own = {e["name"] for e in entries if e["path"] == path}
+        rows = {}
+        for e in entries:
+            key = (e["name"], e["width"]) if "width" in e else e["name"]
+            count = path_widths[key] if "width" in e else counts[key]
+            if count and key not in rows and e["name"] not in own:
+                rows[key] = row(e, path, count)
+        unchecked = set(path_widths) - set(rows)
+        if unchecked:
+            raise AssertionError(f"the {path} path launched flash at "
+                                 f"{unchecked}, which no phase-3 case checks")
+        return list(rows.values())
+
+    # phase 10's decomposition run, animate and edit; phase 11 (a)'s rank 0
+    kernels += path_rows("decomp-run", run_launches, run_widths)
+    kernels += path_rows("frame-parallel", launches["frame-parallel"],
+                         fp_widths)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (build "
         f"included)")
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,11 @@ disabled (the motion stage needs hmr and SMPL-H, the background stage raft
 and propainter). The models run on the card unless the caller passes a CPU
 device.
 
+With a ``mesh`` (a ``parallel.ProcessMesh`` with a "data" axis, every rank
+building the same models) the ViTPose flip-test heatmaps and the motion
+stage's forwards and render split their crops or frames over the ranks
+(``parallel/decomp.py``).
+
 ``main`` is the ``decomp`` command (``python -m mimo_tpu_torch decomp``):
 a video in, a template directory out, through ``VideoProcessor.run``.
 
@@ -57,6 +62,7 @@ from mimo_tpu_torch.decomp import sam2 as SAM2
 from mimo_tpu_torch.decomp import smpl as SM
 from mimo_tpu_torch.decomp import vitpose as VP
 from mimo_tpu_torch.decomp.detector import PoseScoredDetector
+from mimo_tpu_torch.parallel.decomp import frame_parallel
 from mimo_tpu_torch.weights import bridge
 
 BUNDLES = ("sam", "sam2", "vitpose", "hmr", "hamer", "raft", "propainter",
@@ -141,11 +147,12 @@ def build_decomp_models(weights_dir: Optional[str] = None,
                         dtype: torch.dtype = torch.bfloat16,
                         tiny: bool = False, only: Optional[set] = None,
                         device=None, seed: int = 0,
-                        params: Optional[Dict[str, Any]] = None
-                        ) -> DP.DecompModels:
+                        params: Optional[Dict[str, Any]] = None,
+                        mesh=None) -> DP.DecompModels:
     """``only`` restricts the bundles built (names from ``BUNDLES``);
     ``device`` defaults to the card; ``params`` (trees by bundle name, as
-    ``load_params`` makes them) are used as they are instead."""
+    ``load_params`` makes them) are used as they are instead; ``mesh``
+    turns on the frame-parallel forwards."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_decomp_models: no CUDA device; pass "
@@ -189,11 +196,17 @@ def build_decomp_models(weights_dir: Optional[str] = None,
         models.track_video = track
 
     if params.get("vitpose") is not None:
+        def hm_fn(p, crops):
+            return VP.heatmaps_flip_test(p, vp_cfg, crops)
+
+        if mesh is not None:
+            hm_fn = frame_parallel(hm_fn, mesh)
         models.estimate_pose = lambda frame, bbox: VP.estimate_pose(
-            params["vitpose"], vp_cfg, frame, bbox)
+            params["vitpose"], vp_cfg, frame, bbox, heatmap_fn=hm_fn)
         models.estimate_pose_batch = \
             lambda frames, bboxes, batch=8: VP.estimate_pose_batch(
-                params["vitpose"], vp_cfg, frames, bboxes, batch)
+                params["vitpose"], vp_cfg, frames, bboxes, batch,
+                heatmap_fn=hm_fn)
         if models.automask is not None:
             models.detect_person = PoseScoredDetector(
                 automask=models.automask, estimate_pose=models.estimate_pose)
@@ -206,7 +219,7 @@ def build_decomp_models(weights_dir: Optional[str] = None,
                 vitpose_params=params.get("vitpose"), vitpose_cfg=vp_cfg,
                 hmr_params=params["hmr"], hmr_cfg=cfgs["hmr"],
                 hamer_params=params.get("hamer"), hamer_cfg=cfgs["hamer"],
-                smpl_model=smpl_model, sdc_colors=sdc_colors
+                smpl_model=smpl_model, sdc_colors=sdc_colors, mesh=mesh
             ).estimate_motion
 
     if params.get("raft") is not None and params.get("propainter") is not None:

@@ -16,6 +16,12 @@ host (``vitpose.square_crop``).
 The sdc colours are the reference's ``sdc_info.npy`` when given, else the
 template's vertex coordinates normalised to [0, 1] (colour still names
 the body-surface point).
+
+With a ``mesh`` (a ``parallel.ProcessMesh`` with a "data" axis; every rank
+calls ``estimate_motion`` on the same clip) the ViTPose, HMR2 and HaMeR
+forwards split their crops over the ranks (``parallel.decomp
+.frame_parallel``) and the render its frames
+(``render_frames_sharded``); every rank gets the whole clip's sdc.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from mimo_tpu_torch.decomp import renderer as REND
 from mimo_tpu_torch.decomp import smpl as SM
 from mimo_tpu_torch.decomp import vitpose as VP
 from mimo_tpu_torch.decomp.transforms import rotmat_to_aa
+from mimo_tpu_torch.parallel import decomp as PD
 
 
 def wrist_local_rotation(body_rotmats: torch.Tensor,
@@ -117,13 +124,18 @@ class MotionEstimator:
     hamer_params: Any = None
     hamer_cfg: Optional[HM.HMRConfig] = None
     focal: float = 5000.0
-    mesh: Any = None
+    mesh: Any = None            # "data" axis -> frame-parallel forwards
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "MotionEstimator: frame-parallel forwards over a device mesh "
-                "are not ported yet (ROADMAP.md, Queue 1 item 3)")
+        def wrap(fn):
+            return fn if self.mesh is None else PD.frame_parallel(fn,
+                                                                  self.mesh)
+        self._hmr_fwd = wrap(
+            lambda p, c: HM.hmr_forward(p, self.hmr_cfg, c))
+        self._hamer_fwd = wrap(
+            lambda p, c: HM.hmr_forward(p, self.hamer_cfg, c))
+        self._vp_hm = wrap(
+            lambda p, c: VP.heatmaps(p, self.vitpose_cfg, c))
         leaf = self.hmr_params["dec_cam"]["kernel"]
         self.device, self.dtype = leaf.device, leaf.dtype
         self.smpl_model = self.smpl_model.to(self.device)
@@ -152,8 +164,7 @@ class MotionEstimator:
             c, cs = VP.square_crop(f, bb, out_size=size)
             crops.append(c)
             css.append(cs)
-        out = HM.hmr_forward(self.hmr_params, self.hmr_cfg,
-                             self._upload(crops))
+        out = self._hmr_fwd(self.hmr_params, self._upload(crops))
         return out, np.stack(css)
 
     def hand_params(self, frames, kpts_per_frame):
@@ -179,8 +190,8 @@ class MotionEstimator:
         self.hand_crops = len(crops)
         if not crops:
             return results
-        rotm = HM.hmr_forward(self.hamer_params, self.hamer_cfg,
-                              self._upload(crops))["pose_rotmats"]
+        rotm = self._hamer_fwd(self.hamer_params,
+                               self._upload(crops))["pose_rotmats"]
         for (t, side), R in zip(entries, rotm):
             results[t][side] = mirror_rotmat_x(R) if side == "left" else R
         return results
@@ -212,8 +223,7 @@ class MotionEstimator:
             crops.append(c)
             half = cs[2] / 2
             boxes_xywh.append([cs[0] - half, cs[1] - half, cs[2], cs[2]])
-        hm = VP.heatmaps(self.vitpose_params, self.vitpose_cfg,
-                         self._upload(crops))
+        hm = self._vp_hm(self.vitpose_params, self._upload(crops))
         return VP.decode_keypoints(hm.float().cpu().numpy(),
                                    np.asarray(boxes_xywh, np.float32))
 
@@ -242,9 +252,14 @@ class MotionEstimator:
         on black."""
         H, W = frames[0].shape[:2]
         verts = self.posed_vertices(frames, bboxes)
-        rgb, alpha, _ = REND.render_frames(
-            verts, self._faces, self._colors, self.focal,
-            torch.tensor([W / 2.0, H / 2.0], device=self.device),
-            height=H, width=W, stats=self.render_stats)
+        center = torch.tensor([W / 2.0, H / 2.0], device=self.device)
+        if self.mesh is None:
+            rgb, alpha, _ = REND.render_frames(
+                verts, self._faces, self._colors, self.focal, center,
+                height=H, width=W, stats=self.render_stats)
+        else:
+            rgb, alpha, _ = PD.render_frames_sharded(
+                verts, self._faces, self._colors, self.focal, center,
+                height=H, width=W, mesh=self.mesh, stats=self.render_stats)
         sdc = rgb * alpha[..., None]
         return (sdc.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()

@@ -225,24 +225,29 @@ def square_crop(image: np.ndarray, bbox_xyxy: np.ndarray,
 
 
 def estimate_pose(p: Params, cfg: ViTPoseConfig, frame: np.ndarray,
-                  bbox: np.ndarray) -> np.ndarray:
+                  bbox: np.ndarray, heatmap_fn=None) -> np.ndarray:
     """Wholebody keypoints (K, 3) [x, y, score] of the person in ``bbox``
     (xyxy) of ``frame`` (H, W, 3) uint8, flip test on, on the params'
-    device and dtype."""
+    device and dtype. ``heatmap_fn(p, crops)``: the flip-test heatmaps
+    (``heatmaps_flip_test`` by default; the factory passes its
+    frame-parallel form)."""
+    heatmap_fn = heatmap_fn or (lambda pp, c: heatmaps_flip_test(pp, cfg, c))
     leaf = p["final"]["kernel"]
     crop, cs = square_crop(frame, bbox, out_size=cfg.backbone.img_size)
-    hm = heatmaps_flip_test(p, cfg, torch.from_numpy(crop[None]).to(
-        leaf.device, leaf.dtype))
+    hm = heatmap_fn(p, torch.from_numpy(crop[None]).to(leaf.device,
+                                                        leaf.dtype))
     half = cs[2] / 2
     box = np.array([[cs[0] - half, cs[1] - half, cs[2], cs[2]]])
     return decode_keypoints(hm.float().cpu().numpy(), box)[0]
 
 
 def estimate_pose_batch(p: Params, cfg: ViTPoseConfig, frames, bboxes,
-                        batch: int = 8) -> np.ndarray:
+                        batch: int = 8, heatmap_fn=None) -> np.ndarray:
     """Whole-clip keypoints (T, K, 3): every frame's person crop cut on the
     host, the flip-test heatmaps ``batch`` crops a call (a memory bound;
-    the last call may be shorter), one decode of the clip."""
+    the last call may be shorter), one decode of the clip.
+    ``heatmap_fn``: as ``estimate_pose``'s."""
+    heatmap_fn = heatmap_fn or (lambda pp, c: heatmaps_flip_test(pp, cfg, c))
     leaf = p["final"]["kernel"]
     crops, boxes_xywh = [], []
     for f, bb in zip(frames, bboxes):
@@ -251,8 +256,7 @@ def estimate_pose_batch(p: Params, cfg: ViTPoseConfig, frames, bboxes,
         half = cs[2] / 2
         boxes_xywh.append([cs[0] - half, cs[1] - half, cs[2], cs[2]])
     crops = np.stack(crops)
-    hms = [heatmaps_flip_test(p, cfg, torch.from_numpy(
-        crops[i:i + batch]).to(leaf.device, leaf.dtype))
-        for i in range(0, len(crops), batch)]
+    hms = [heatmap_fn(p, torch.from_numpy(crops[i:i + batch]).to(
+        leaf.device, leaf.dtype)) for i in range(0, len(crops), batch)]
     return decode_keypoints(torch.cat(hms).float().cpu().numpy(),
                             np.asarray(boxes_xywh, np.float32))

@@ -80,6 +80,12 @@ class Runner:
     # per-phase times (ms) of the last generate(): prepare, step_mean,
     # decode, steps
     last_timings: Dict[str, float] = field(default_factory=dict)
+    # sharding over a parallel.ProcessMesh (Pose2VideoStatic's fields of
+    # the same names); every rank calls generate with the same inputs
+    mesh: Any = None
+    mesh_axis: Optional[str] = None
+    frame_axis: Optional[str] = None
+    pad_windows_to: int = 1
 
     def generate(self, ref_image: np.ndarray, pose_frames: List[np.ndarray],
                  bk_frames: List[np.ndarray], *, width: int, height: int,
@@ -115,8 +121,9 @@ class Runner:
         st = pose2vid.Pose2VideoStatic(
             cfg=self.cfg, num_frames=num_frames, height=height, width=width,
             num_inference_steps=steps, guidance_scale=cfg_scale,
-            window_chunk=window_chunk,
-            interpolation_factor=interpolation_factor)
+            window_chunk=window_chunk, pad_windows_to=self.pad_windows_to,
+            mesh_axis=self.mesh_axis, frame_axis=self.frame_axis,
+            mesh=self.mesh, interpolation_factor=interpolation_factor)
         clock = pose2vid.PhaseClock(dev)
         out = pose2vid.generate_host_loop(
             self.params, st, tensor(ref), tensor(pose), tensor(bk),

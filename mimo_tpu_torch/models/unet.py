@@ -10,9 +10,15 @@ cross-attention over a single CLIP token reduces exactly to
 
 The transformer and motion blocks run through the GEMM-chain ops
 (``ops/ffn.py``, ``ops/temporal_attention.py``) wherever the JAX package
-calls its fused kernels. Left out here, because they exist for XLA or for a
-TPU mesh: the SNC token transposes, ``SNC_TOKEN_PATH`` and the
-frame-sharded motion-module paths.
+calls its fused kernels. Left out here, because they exist for XLA: the SNC
+token transposes and ``SNC_TOKEN_PATH``.
+
+Frame-parallel generation (``pipelines/pose2vid.py``) runs every op here
+on its rank's frames except the motion modules' temporal attention, which
+needs every frame: ``group`` and ``frames_global`` reach
+``motion_module_apply``, which swaps frame- for spatial-sharding with one
+all-to-all each way (``reshard_mode``) over the ``torch.distributed``
+group.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from mimo_tpu_torch.ops.attention import dispatch_sdpa, dispatch_sdpa_banked
 from mimo_tpu_torch.ops.ffn import (ffn_ln_geglu_fused, matmul_bias,
                                     matmul_bias_residual, qkv_ln_fused)
 from mimo_tpu_torch.ops.temporal_attention import temporal_attention_ln
+from mimo_tpu_torch.parallel import comm
 
 Params = Dict[str, Any]
 
@@ -204,16 +211,49 @@ def _temporal_pe(f: int, dim: int, dtype: torch.dtype,
     return pe.to(dtype)
 
 
+def reshard_mode(spatial: int, ndev: int) -> str:
+    """Which collective the frame-parallel temporal attention uses to swap
+    frame- for spatial-sharding (``mimo_tpu/models/unet.py``'s).
+
+    - "a2a": the spatial positions divide the group: one all-to-all each
+      way, every rank keeps 1/n of the work. The production branch: the
+      512x784 latent levels give S = 6272 / 1568 / 400 / 104, all divisible
+      by 2, 4 and 8.
+    - "gather": ragged S (tiny test shapes): all-gather the frames, attend
+      over all of them, slice this rank's frames back out.
+    """
+    return "a2a" if spatial % ndev == 0 else "gather"
+
+
 def motion_module_apply(p: Params, x: torch.Tensor, frames: int,
-                        mcfg: MotionModuleConfig) -> torch.Tensor:
+                        mcfg: MotionModuleConfig, group=None,
+                        frames_global: Optional[int] = None) -> torch.Tensor:
     """x: (B*F, H, W, C) -> same. Temporal self-attention over the frame
     axis at every spatial location; frames stay the second axis of the
-    (B, F, S, C) tokens throughout."""
+    (B, F, S, C) tokens throughout.
+
+    Frame-parallel (``group`` set): x holds this rank's ``frames`` of
+    ``frames_global``. The tokens swap the frame axis for the spatial axis
+    ((b, F/n, S, c) -> (b, F, S/n, c)) with one all-to-all, the attention
+    and FF blocks run over every frame on 1/n of the positions, and a
+    second all-to-all swaps back; where S does not divide the group, the
+    frames are all-gathered instead and this rank's slice is kept. The PE
+    and the attention span ``frames_global``."""
     n, hgt, wid, c = x.shape
     b = n // frames
     h = L.group_norm(p["norm"], x, mcfg.norm_num_groups, 1e-6)
     tokens = matmul_bias(h.reshape(b, frames, hgt * wid, c), p["proj_in"])
-    pe = _temporal_pe(frames, c, tokens.dtype, tokens.device)
+    f_attn, mode = frames, None
+    if group is not None and frames_global is not None \
+            and frames_global != frames:
+        f_attn = frames_global
+        mode = reshard_mode(hgt * wid, frames_global // frames)
+        if mode == "a2a":
+            tokens = comm.all_to_all(tokens, group, split_axis=2,
+                                     concat_axis=1)
+        else:
+            tokens = comm.all_gather(tokens, group, axis=1)
+    pe = _temporal_pe(f_attn, c, tokens.dtype, tokens.device)
     for blk in p["blocks"]:
         for a in blk["attns"]:
             # tokens + attn(LN(tokens) + pe): the PE is added to the *normed*
@@ -221,6 +261,11 @@ def motion_module_apply(p: Params, x: torch.Tensor, frames: int,
             tokens = temporal_attention_ln(a["attn"], a["norm"], pe, tokens,
                                            mcfg.num_heads)
         tokens = ffn_ln_geglu_fused(tokens, blk["ff_norm"], blk["ff"])
+    if mode == "a2a":
+        tokens = comm.all_to_all(tokens, group, split_axis=1, concat_axis=2)
+    elif mode == "gather":
+        i = comm.axis_index(group)
+        tokens = tokens[:, i * frames:(i + 1) * frames].contiguous()
     out = matmul_bias_residual(tokens, p["proj_out"],
                                x.reshape(b, frames, hgt * wid, c))
     return out.reshape(n, hgt, wid, c)
@@ -343,9 +388,11 @@ def _unet_core(p: Params, cfg: UNetConfig, h: torch.Tensor,
                temb: torch.Tensor, ctx: torch.Tensor, frames: int,
                banks_out: Optional[List[torch.Tensor]],
                banks_in: Optional[List[torch.Tensor]],
-               cfg_split: bool, skip_out_head: bool) -> torch.Tensor:
+               cfg_split: bool, skip_out_head: bool, group=None,
+               frames_global: Optional[int] = None) -> torch.Tensor:
     """down → mid → up [→ head] on h = conv_in(x) [+ pose];
-    h: (N, H, W, C0) with N = B*frames."""
+    h: (N, H, W, C0) with N = B*frames (``group``, ``frames_global``: see
+    ``motion_module_apply``)."""
     g, eps = cfg.norm_num_groups, cfg.norm_eps
     mm = cfg.use_motion_module
     banks = iter(banks_in) if banks_in is not None else None
@@ -363,7 +410,7 @@ def _unet_core(p: Params, cfg: UNetConfig, h: torch.Tensor,
                     bank_in=next_bank(), cfg_split=cfg_split)
             if mm and blk["motions"] is not None:
                 h = motion_module_apply(blk["motions"][j], h, frames,
-                                        cfg.motion)
+                                        cfg.motion, group, frames_global)
             skips.append(h)
         if blk["downsample"] is not None:
             h = L.conv2d(blk["downsample"], h, stride=2, padding=1)
@@ -376,7 +423,8 @@ def _unet_core(p: Params, cfg: UNetConfig, h: torch.Tensor,
                                   bank_out=banks_out, bank_in=next_bank(),
                                   cfg_split=cfg_split)
     if mm and mid["motions"] is not None:
-        h = motion_module_apply(mid["motions"][0], h, frames, cfg.motion)
+        h = motion_module_apply(mid["motions"][0], h, frames, cfg.motion,
+                                group, frames_global)
     h = resnet_apply(mid["resnets"][1], h, temb, g, eps)
     _tap("mid", h)
 
@@ -390,7 +438,7 @@ def _unet_core(p: Params, cfg: UNetConfig, h: torch.Tensor,
                     bank_in=next_bank(), cfg_split=cfg_split)
             if mm and blk["motions"] is not None:
                 h = motion_module_apply(blk["motions"][j], h, frames,
-                                        cfg.motion)
+                                        cfg.motion, group, frames_global)
         if blk["upsample"] is not None:
             # target the next skip's spatial dims (odd sizes: 13→25)
             h = L.upsample_nearest_to(h, skips[-1].shape[1],
@@ -425,10 +473,13 @@ def unet2d_apply(p: Params, cfg: UNetConfig, x: torch.Tensor, t,
 def unet3d_apply(p: Params, cfg: UNetConfig, x: torch.Tensor, t,
                  ctx: torch.Tensor, pose_fea: Optional[torch.Tensor],
                  banks: Optional[List[torch.Tensor]],
-                 cfg_split: bool = False) -> torch.Tensor:
+                 cfg_split: bool = False, group=None,
+                 frames_global: Optional[int] = None) -> torch.Tensor:
     """Denoising-UNet role. x: (B, F, H, W, Cin); t: scalar timestep;
     ctx: (B, 1, 768); pose_fea: (B, F, H, W, 320) or None; banks: list of
-    (S_block, C_block) cond banks or None. Returns (B, F, H, W, out)."""
+    (S_block, C_block) cond banks or None. Returns (B, F, H, W, out).
+    Frame-parallel: x holds this rank's F of ``frames_global`` frames and
+    ``group`` is the frame axis's process group."""
     bsz, frames, hgt, wid, cin = x.shape
     xf = x.reshape(bsz * frames, hgt, wid, cin)
     temb = _time_embedding(p, cfg, t, bsz, x.dtype, x.device)
@@ -440,7 +491,8 @@ def unet3d_apply(p: Params, cfg: UNetConfig, x: torch.Tensor, t,
         h = h + pose_fea.reshape(bsz * frames, hgt, wid, -1).to(h.dtype)
 
     out = _unet_core(p, cfg, h, temb, ctxf, frames=frames, banks_out=None,
-                     banks_in=banks, cfg_split=cfg_split, skip_out_head=False)
+                     banks_in=banks, cfg_split=cfg_split, skip_out_head=False,
+                     group=group, frames_global=frames_global)
     return out.reshape(bsz, frames, hgt, wid, cfg.out_channels)
 
 

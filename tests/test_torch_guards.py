@@ -41,6 +41,9 @@ SLICE_MODULES = [
     "mimo_tpu_torch.ops.morphology", "mimo_tpu_torch.ops.sampling",
     "mimo_tpu_torch.decomp.raft", "mimo_tpu_torch.decomp.propainter",
     "mimo_tpu_torch.decomp.depth_anything", "mimo_tpu_torch.decomp.occlusion",
+    "mimo_tpu_torch.parallel", "mimo_tpu_torch.parallel.mesh",
+    "mimo_tpu_torch.parallel.comm", "mimo_tpu_torch.parallel.decomp",
+    "mimo_tpu_torch.entry.graft",
 ]
 
 
@@ -103,3 +106,39 @@ def test_sources_and_signatures_present():
     text = "".join(p.read_text() for p in _build._sources())
     for name in _build._SIGNATURES:
         assert f"{name}(" in text, name
+
+
+def test_nccl_with_more_ranks_than_cards_raises(monkeypatch):
+    """NCCL refuses two ranks on one card: init raises, naming both counts,
+    and does not switch to gloo (the default backend on CUDA is NCCL)."""
+    import torch
+    from mimo_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for backend in ("nccl", None):
+        with pytest.raises(RuntimeError, match="2 ranks needs 2 cards, 1 "
+                                               "visible"):
+            mesh.init(backend, "cuda:0", init_method="file:///nonexistent",
+                      world_size=2, rank=0)
+
+
+def test_init_on_cuda_without_cuda_raises(monkeypatch):
+    import torch
+    from mimo_tpu_torch.parallel import mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend in ("nccl", "gloo", None):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.init(backend, "cuda", init_method="file:///nonexistent",
+                      world_size=1, rank=0)
+
+
+def test_graft_entry_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    import torch
+    from mimo_tpu_torch.entry import graft
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            graft.entry()
+    fn, args = graft.entry(device="cpu")
+    out = fn(*args)
+    assert out.shape == (4, 4, 32, 32, 4) and torch.isfinite(out).all()

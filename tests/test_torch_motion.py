@@ -186,10 +186,34 @@ def test_estimate_motion_matches_jax():
     assert (diff[~near] <= 1).all(), int((diff[~near] > 1).sum())
 
 
-def test_mesh_raises_not_implemented():
-    _, pe = _estimators()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        dataclasses.replace(pe, mesh=object())
+def test_mesh_of_one_rank_gives_the_single_process_sdc():
+    """MotionEstimator(mesh=...) on a gloo world of one rank (spawned by
+    entry/graft.py) gives the single-process sdc in every bit, on
+    test_estimate_motion_matches_jax's setup (its sdc is not empty)."""
+    from mimo_tpu_torch.entry import graft
+    hcfg = JHM.tiny_hmr_config(num_joints=5)
+    vcfg = JVP.tiny_vitpose_config()
+    faces = np.random.default_rng(9).integers(0, 64, (48, 3))
+    jm = dataclasses.replace(JSM.random_test_model(jax.random.PRNGKey(0)),
+                             faces=faces)
+    models = {"vitpose": (bridge_params(JVP.vitpose_init(
+        jax.random.PRNGKey(1), vcfg), kind="vitpose"), _port_vp_cfg(vcfg)),
+        "hmr": (bridge_params(JHM.hmr_init(jax.random.PRNGKey(2), hcfg)),
+                _port_hmr_cfg(hcfg)),
+        "smpl": _port_model(jm), "focal": 100.0}
+    rng = np.random.default_rng(0)
+    clip = ([rng.uniform(0, 255, (48, 64, 3)).astype(np.uint8)
+             for _ in range(2)], [np.ones((48, 64), bool)] * 2,
+            np.array([[10, 5, 50, 45], [12, 5, 52, 45]]))
+    (got,), = graft.spawn(graft.motion_body, 1, backend="gloo",
+                          device="cpu",
+                          args=(models, [dict(op="motion", clip=clip)]))
+    want = MO.MotionEstimator(
+        vitpose_params=models["vitpose"][0], vitpose_cfg=models["vitpose"][1],
+        hmr_params=models["hmr"][0], hmr_cfg=models["hmr"][1],
+        smpl_model=models["smpl"], focal=100.0).estimate_motion(*clip)
+    assert want.any()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.fixture(scope="module")
