@@ -5,18 +5,13 @@ python -m mimo_tpu_torch <command> ...
   edit      video character replacement with full compositing
   serve     gradio web app (if gradio is installed)
   decomp    in-the-wild video -> template extraction
-  bench     headline benchmark (not ported yet)
+  bench     headline benchmark (frames/s of the 24-frame 512x784 clip)
 
-animate, edit and decomp run on a CUDA device (decomp --cpu on the
-CPU).
+animate, edit, decomp and bench run on a CUDA device (decomp --cpu on
+the CPU).
 """
 
 import sys
-
-NOT_PORTED = {
-    "bench": "the benchmark is not ported yet (ROADMAP.md, Queue 1 item 1: "
-             "bench.py imports jax); use `python bench.py` with JAX",
-}
 
 
 def main(argv=None):
@@ -33,9 +28,8 @@ def main(argv=None):
         from mimo_tpu_torch.serving.app import main as m
     elif cmd == "decomp":
         from mimo_tpu_torch.decomp.factory import main as m
-    elif cmd in NOT_PORTED:
-        print(f"{cmd}: {NOT_PORTED[cmd]}", file=sys.stderr)
-        raise SystemExit(2)
+    elif cmd == "bench":
+        from mimo_tpu_torch.bench import main as m
     else:
         print(f"unknown command: {cmd}\n{__doc__}", file=sys.stderr)
         raise SystemExit(2)

@@ -13,7 +13,10 @@ Channels-last tokens (B, S, D). Attention keeps the JAX dispatch rule:
 unbiased attention over S >= 1024 tokens goes to ``dispatch_sdpa`` (the
 flash kernel on the card), the rest, and every biased attention, to
 ``F.scaled_dot_product_attention``, where the JAX package called
-``jax.nn.dot_product_attention``.
+``jax.nn.dot_product_attention``, on one of ``SDPA_BACKENDS``: torch's
+first choice on an H100, cuDNN's attention, does not give the same bits
+twice on the same inputs once the card has run other attention shapes
+(PERF.md).
 """
 
 from __future__ import annotations
@@ -24,11 +27,18 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from mimo_tpu_torch.models import layers as L
 from mimo_tpu_torch.ops.attention import dispatch_sdpa
 
 Params = Dict[str, Any]
+
+# the backends ``attention_heads`` may take (torch chooses among them by its
+# own order and the call's shapes), each of which repeats its bits: not
+# cuDNN's
+SDPA_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.MATH]
 
 
 @dataclass(frozen=True)
@@ -187,10 +197,11 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, Sq, H, d) x (B, Sk, H, d) -> (B, Sq, H, d), scale 1/sqrt(d),
     ``bias`` (B or 1, H or 1, Sq, Sk) added to the logits (or a boolean
     mask of the keys to keep): ``jax.nn.dot_product_attention``'s
-    counterpart, one library call."""
-    o = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=bias)
+    counterpart, one library call on ``SDPA_BACKENDS``."""
+    with sdpa_kernel(SDPA_BACKENDS):
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=bias)
     return o.transpose(1, 2)
 
 

@@ -19,20 +19,10 @@ import time
 import numpy as np
 import torch
 
+from mimo_tpu_torch.bench import make_inputs
 from mimo_tpu_torch.config import MIMOConfig
 from mimo_tpu_torch.entry.runner import init_random_params
 from mimo_tpu_torch.pipelines import pose2vid
-
-
-def _inputs(frames: int, height: int, width: int, dev, dtype):
-    gen = torch.Generator(device=dev).manual_seed(1)
-    ref = torch.rand((height, width, 3), generator=gen, device=dev) * 2 - 1
-    pose = torch.rand((frames, height, width, 3), generator=gen, device=dev)
-    bk = torch.rand((frames, height, width, 3), generator=gen, device=dev)
-    clip = torch.randn((224, 224, 3), generator=gen, device=dev)
-    noise = torch.randn((frames, height // 8, width // 8, 4), generator=gen,
-                        device=dev)
-    return [t.to(dtype) for t in (ref, pose, bk * 2 - 1, clip, noise)]
 
 
 def main(argv=None) -> None:
@@ -57,7 +47,7 @@ def main(argv=None) -> None:
     st = pose2vid.Pose2VideoStatic(
         cfg=cfg, num_frames=args.frames, height=args.height, width=args.width,
         num_inference_steps=args.steps, guidance_scale=3.5)
-    inputs = _inputs(args.frames, args.height, args.width, dev, dt)
+    inputs = make_inputs(cfg, args.frames, args.height, args.width, dev, dt)
 
     for run in ("warm-up", "timed"):
         clock = pose2vid.PhaseClock(dev)

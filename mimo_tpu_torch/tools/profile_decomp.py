@@ -59,6 +59,22 @@ BK_PHASES = ("raft", "flow_complete", "img_propagation", "windows")
 CLIP = (48, 720, 480)               # frames, height, width
 
 
+def framed_bodies(params):
+    """Random heads pose every joint ≈ 1.4 rad from rest, and the synthetic
+    SMPL-H's seeded skinning weights blend all 52 joints at every vertex,
+    so such a body shrinks to 0-1% of a frame; the camera head adds a
+    random shift. Scale HMR2's and HaMeR's pose updates by 0.1 (≈ 0.15 rad
+    a joint) and zero HMR2's camera updates, so that every frame's camera
+    is the mean (0.9, 0, 0): the body ≈ 0.77 of its person box tall,
+    centred on the box (≈ 10-13% of the frame)."""
+    for name in ("hmr", "hamer"):
+        for leaf in params[name]["dec_pose"].values():
+            leaf.mul_(0.1)
+    for leaf in params["hmr"]["dec_cam"].values():
+        leaf.zero_()
+    return params
+
+
 def synth_frames(t: int, h: int, w: int, seed: int = 0):
     """A moving person-ish figure over a textured background: (frames,
     masks (T, H, W) bool, boxes (T, 4) xyxy)."""

@@ -186,3 +186,30 @@ def test_hand_boxes_match_jax():
         JVP.hand_boxes_from_keypoints(k)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1] is None and want[1] is None
+
+
+@pytest.mark.parametrize("biased", [False, True], ids=["plain", "bias"])
+def test_attention_heads_stays_off_cudnn(biased, monkeypatch):
+    """``attention_heads`` runs its one SDPA call with cuDNN's attention
+    disabled (it did not repeat its bits on the card), and gives the math
+    backend's result."""
+    import torch
+    seen = []
+    sdpa = V.F.scaled_dot_product_attention
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cuda.cudnn_sdp_enabled())
+        return sdpa(*args, **kwargs)
+
+    monkeypatch.setattr(V.F, "scaled_dot_product_attention", spy)
+    assert torch.nn.attention.SDPBackend.CUDNN_ATTENTION not in \
+        V.SDPA_BACKENDS
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 7, 3, 8), generator=gen) for _ in range(3))
+    bias = torch.randn((2, 3, 7, 7), generator=gen) if biased else None
+    got = V.attention_heads(q, k, v, bias)
+    assert seen == [False] and torch.backends.cuda.cudnn_sdp_enabled()
+    with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.MATH):
+        want = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=bias).transpose(1, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)

@@ -179,7 +179,8 @@ def test_dispatcher_help_and_unknown(capsys):
     ("animate", "mimo_tpu_torch.entry.animate"),
     ("edit", "mimo_tpu_torch.entry.edit"),
     ("serve", "mimo_tpu_torch.serving.app"),
-    ("decomp", "mimo_tpu_torch.decomp.factory")])
+    ("decomp", "mimo_tpu_torch.decomp.factory"),
+    ("bench", "mimo_tpu_torch.bench")])
 def test_dispatcher_routes(cmd, module, monkeypatch):
     import importlib
     seen = []
@@ -187,15 +188,6 @@ def test_dispatcher_routes(cmd, module, monkeypatch):
                         lambda argv: seen.append(argv))
     M.main([cmd, "--ref", "r.png"])
     assert seen == [["--ref", "r.png"]]
-
-
-@pytest.mark.parametrize("cmd,item", [("bench", "item 1")])
-def test_dispatcher_not_ported(cmd, item, capsys):
-    with pytest.raises(SystemExit) as e:
-        M.main([cmd])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP.md" in err and item in err
 
 
 # ---------------------------------------------------------------------------
