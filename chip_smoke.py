@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles the CUDA kernels from mimo_tpu_torch/csrc with nvcc,
    prints the build's wall time and ptxas's registers and spills (the 36
    flash ablation builds summed up at the end); fails if the GEMM tile
-   core, any production flash, temporal-core, GroupNorm or LN-row
-   instantiation spills, or ptxas ignored a setmaxnreg;
+   core, any production flash (wide heads too), temporal-core, GroupNorm
+   or LN-row instantiation spills, or ptxas ignored a setmaxnreg;
 3. kernels: each kernel wrapper (the function the main path calls; one
    call must count one launch) against its plain PyTorch version on the
    card at the main path's shapes (ragged edges included) and at the edit
@@ -32,7 +32,13 @@ Phases, in order; any failure exits non-zero:
    levels 0-3, and its core alone at those levels
    and at F = 5 and 32 (beside SDPA on (B·S, H, F, d) copies); flash also
    at the decomposition's widths (d = 72 Hiera-L, d = 16 the decoders,
-   d = 64 DINOv2-L over 2073 tokens with q/k/v column views);
+   d = 64 DINOv2-L over 2073 tokens with q/k/v column views); the wide-head
+   flash kernel (``flash_attention_wide``) at the VAE mid block's one head
+   of d = 512 over a bench VAE chunk (B = 8, S = 6272), the encode's last
+   chunk (B = 1), edit's 9604 tokens, 256x256's 1024 and a ragged 1100 /
+   1000, and at 2 heads of 192, beside SDPA on the first pinned backend
+   (``decomp/vit.py::SDPA_BACKENDS``) that takes the shape, named, and
+   twice at the first case (equal bits);
 4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``, the
    production kernel's body at each mode): ``full`` equal in every bit to
    the production kernel (``flash_attention_nt``) at UNet levels 0 and 1
@@ -221,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from collections import Counter
 
@@ -347,6 +354,7 @@ def phase_build() -> None:
             else:
                 log(f"  ptxas {name}: {regs}; {spills}")
             if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
+                                        "flash_wide_kernel",
                                         "tattn_kernel", "gn_kernel",
                                         "gn_resident_kernel",
                                         "ln_rows_kernel",
@@ -547,10 +555,82 @@ def phase_kernels():
                 f"{bound_ms:.3f} ms by {what} ({bound_ms / ms[len(ms) // 2]:.0%}"
                 f" of the median)")
 
+    entries += wide_flash_cases(FA, randn, flash_why)
     entries += group_norm_cases(GN, randn)
     entries += ln_rows_cases(FF, randn)
     entries += gemm_chain_cases(FF, TA, randn)
     entries += temporal_core_cases(TA, randn)
+    return entries
+
+
+# the wide flash kernel (flash_attention_wide) at the VAE mid block's one
+# head of d = 512: (heads, d, batch, sq, sk, path) of a bench vae_chunk of 8
+# frames at 512x784, the encode's last chunk (1 frame: 98 query tiles, under
+# one wave), edit's 784x784 (the plain version's logits 315 MB a 1024-query
+# chunk), the animate CLI's 256x256, ragged query and key edges; and 2
+# heads of 192 (3 boxes of 64 columns split 2 / 1 between the two
+# warpgroups, the second head at a column offset)
+WIDE_CASES = [(1, 512, 8, 6272, 6272, "animate"),
+              (1, 512, 1, 6272, 6272, "animate"),
+              (1, 512, 8, 9604, 9604, "edit"),
+              (1, 512, 8, 1024, 1024, "animate"),
+              (1, 512, 2, 1100, 1000, "animate"),
+              (2, 192, 2, 1100, 1000, "animate")]
+
+
+def sdpa_backend_call(q, k, v, heads):
+    """F.scaled_dot_product_attention on (B, H, S, d) views of q/k/v, on the
+    first of ``decomp/vit.py``'s pinned SDPA_BACKENDS (torch's own order
+    among them) that takes the shape: (description naming it, fn), or
+    (reason, None)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+    from mimo_tpu_torch.decomp.vit import SDPA_BACKENDS
+    qh, kh, vh = (x.unflatten(-1, (heads, -1)).transpose(1, 2)
+                  for x in (q, k, v))
+    for backend in SDPA_BACKENDS:
+        def fn(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qh, kh, vh)
+        try:
+            with warnings.catch_warnings():  # torch's reasons a backend
+                warnings.simplefilter("ignore")  # refuses the shape
+                fn()
+        except RuntimeError:
+            continue
+        return f"F.scaled_dot_product_attention ({backend.name})", fn
+    return "no SDPA backend of SDPA_BACKENDS takes it", None
+
+
+def wide_flash_cases(FA, randn, why):
+    """``flash_attention_wide`` against its plain version at WIDE_CASES,
+    inputs scaled as the flash cases' (logits of a few units), beside SDPA
+    on the first pinned backend that takes d = 512 (SDPA's flash backend
+    stops at d = 256); the first case twice, which must give equal bits."""
+    entries = []
+    for heads, d, b, sq, sk, path in WIDE_CASES:
+        inner = heads * d
+        q = randn(b, sq, inner, scale=2.0)
+        k = randn(b, sk, inner, scale=2.0)
+        v = randn(b, sk, inner)
+        got = call_wrapper(FA.flash_attention_wide, q, k, v, heads)
+        torch.cuda.synchronize()
+        want = FA.attention_plain(q, k, v, heads)
+        label = f"flash_attention_wide d={d} H={heads} B={b} Sq={sq} Sk={sk}"
+        err = check_close(label, got, want, 2e-2, 2e-2, why)
+        del got, want
+        if not entries:
+            bit_equal(label,
+                      lambda: FA.flash_attention_wide(q, k, v, heads))
+        entries.append(kernel_entry(
+            "flash_attention_wide", "mimo_tpu_torch/csrc/flash_wide.cu",
+            "mimo_tpu/ops/attention.py:103", label, err,
+            lambda: FA.flash_attention_wide(q, k, v, heads),
+            lambda: FA.attention_plain(q, k, v, heads),
+            flash_work(b, heads, d, sq, sk,
+                       q.numel() + k.numel() + v.numel()),
+            sdpa_backend_call(q, k, v, heads), path))
+        entries[-1]["width"] = d
     return entries
 
 
@@ -3291,18 +3371,16 @@ def reset_counts():
     counters = kernel_wrappers()
     for fn in counters:
         fn.launches = 0
-    FA.flash_attention_nt.widths.clear()
-    FA.flash_attention_nt_bank.widths.clear()
+    for fn in FA.FLASH_WRAPPERS:
+        fn.widths.clear()
     return counters
 
 
 def flash_widths():
-    """Both flash wrappers' launches since ``reset_counts``, by (wrapper
+    """The flash wrappers' launches since ``reset_counts``, by (wrapper
     name, head width)."""
     from mimo_tpu_torch.ops import flash_attention as FA
-    return Counter({(fn.__name__, d): n
-                    for fn in (FA.flash_attention_nt,
-                               FA.flash_attention_nt_bank)
+    return Counter({(fn.__name__, d): n for fn in FA.FLASH_WRAPPERS
                     for d, n in fn.widths.items()})
 
 

@@ -2,8 +2,10 @@
 
 Counterpart of ``mimo_tpu/models/vae.py``: ``encode_mean`` (the scaled
 latent mean) and ``decode``. Every GroupNorm routes to the GroupNorm kernel
-on CUDA (eps 1e-6); the mid block's single-head d=512 attention takes plain
-attention (ops/attention.py).
+on CUDA (eps 1e-6); the mid block's single-head d=512 attention goes to the
+wide flash kernel (``flash_attention_wide``) at 1024 tokens or more, as the
+JAX package's went to ``flash_sdpa``, and to plain attention below
+(ops/attention.py).
 """
 
 from __future__ import annotations

@@ -11,10 +11,9 @@ def kernel_wrappers():
     from mimo_tpu_torch.ops import flash_attention as FA
     from mimo_tpu_torch.ops import groupnorm as GN
     from mimo_tpu_torch.ops import temporal_attention as TA
-    return (FA.flash_attention_nt, FA.flash_attention_nt_bank,
-            GN.group_norm_fused, FF.ln_rows, FF.ffn_ln_geglu_fused,
-            FF.qkv_ln_fused, FF.matmul_bias_residual, FF.matmul_bias,
-            TA.temporal_attention_ln, TA.temporal_attn_core)
+    return (*FA.FLASH_WRAPPERS, GN.group_norm_fused, FF.ln_rows,
+            FF.ffn_ln_geglu_fused, FF.qkv_ln_fused, FF.matmul_bias_residual,
+            FF.matmul_bias, TA.temporal_attention_ln, TA.temporal_attn_core)
 
 
 def launch_counts() -> Dict[str, Any]:
@@ -22,7 +21,5 @@ def launch_counts() -> Dict[str, Any]:
     head width ([name, d, launches])."""
     from mimo_tpu_torch.ops import flash_attention as FA
     return {"counts": {fn.__name__: fn.launches for fn in kernel_wrappers()},
-            "widths": [[fn.__name__, d, n]
-                       for fn in (FA.flash_attention_nt,
-                                  FA.flash_attention_nt_bank)
+            "widths": [[fn.__name__, d, n] for fn in FA.FLASH_WRAPPERS
                        for d, n in sorted(fn.widths.items())]}

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "mimo_cuda_error_string": ([_I], ctypes.c_char_p),
     "mimo_flash_attention_fwd": (
         [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _P], _I),
+    "mimo_flash_wide_fwd": ([_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P], _I),
     "mimo_group_norm_fwd": ([_P] * 9 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
                             _I),
     "mimo_group_norm_resident_fwd": (

@@ -163,19 +163,23 @@ def test_bench_times_the_generation_loop(monkeypatch):
 
 
 def test_kernel_wrappers_count_their_launches():
-    """``ops.kernel_wrappers`` lists the main path's ten wrappers, each
-    with its launch count; ``launch_counts`` reads them by name."""
+    """``ops.kernel_wrappers`` lists the main path's eleven wrappers, each
+    with its launch count; ``launch_counts`` reads them by name, and the
+    three flash wrappers' (flash_attention_wide among them) by width."""
     from mimo_tpu_torch import ops
     from mimo_tpu_torch.ops import flash_attention as FA
     wrappers = ops.kernel_wrappers()
     names = [fn.__name__ for fn in wrappers]
-    assert len(set(names)) == len(wrappers) == 10
+    assert len(set(names)) == len(wrappers) == 11
     assert all(isinstance(fn.launches, int) for fn in wrappers)
+    assert FA.FLASH_WRAPPERS == (FA.flash_attention_nt,
+                                 FA.flash_attention_nt_bank,
+                                 FA.flash_attention_wide)
+    assert set(FA.FLASH_WRAPPERS) <= set(wrappers)
     got = ops.launch_counts()
     assert got["counts"] == {fn.__name__: fn.launches for fn in wrappers}
     assert got["widths"] == [
-        [fn.__name__, d, n] for fn in (FA.flash_attention_nt,
-                                       FA.flash_attention_nt_bank)
+        [fn.__name__, d, n] for fn in FA.FLASH_WRAPPERS
         for d, n in sorted(fn.widths.items())]
     json.dumps(got)
 

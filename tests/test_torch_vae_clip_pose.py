@@ -49,15 +49,38 @@ def test_vae_encode_decode_match_jax():
 
 
 def test_vae_mid_attention_over_long_sequence_matches_jax():
-    """The single-head mid-block attention (plain attention in the port)
-    at a sequence long enough that the JAX package routed it to flash on
-    the TPU (32x32 latent -> 1024 tokens, d = 32 channels)."""
+    """The single-head mid-block attention at a sequence long enough that
+    the JAX package routed it to flash on the TPU (32x32 latent -> 1024
+    tokens, d = 32 channels: flash_attention_nt on the card, its plain
+    version here)."""
     cfg = JC.tiny_vae_config()
     p = JV.vae_init(jax.random.PRNGKey(1), cfg)
     z = _rng(2).standard_normal((1, 32, 32, 4)).astype(np.float32)
     np.testing.assert_allclose(
         nn(V.decode(bridge_params(p), C.tiny_vae_config(), tt(z))),
         nn(JV.decode(p, cfg, jnp.asarray(z))), **TOL)
+
+
+def test_vae_mid_block_attention_at_512_channels_matches_jax():
+    """The mid block's attention module (GroupNorm, q/k/v projections, one
+    head of d = 512, output projection, residual) at the real VAE's 512
+    channels over one 32x32 latent (1024 tokens): the wide branch of the
+    dispatch (flash_attention_wide on the card, its plain version here)
+    against mimo_tpu's module; the GroupNorm's scale and bias drawn so the
+    affine part is live."""
+    channels, groups = 512, 32
+    p = JV._attn_init(jax.random.PRNGKey(5), channels)
+    rng = _rng(6)
+    p["norm"] = {"scale": jnp.asarray(rng.uniform(0.5, 1.5, channels),
+                                      jnp.float32),
+                 "bias": jnp.asarray(rng.normal(0, 0.1, channels),
+                                     jnp.float32)}
+    x = rng.standard_normal((1, 32, 32, channels)).astype(np.float32)
+    from mimo_tpu_torch.ops import attention as A
+    assert A.sdpa_route(32 * 32, channels, cuda=True) == "wide"
+    np.testing.assert_allclose(
+        nn(V._attn_apply(bridge_params(p), tt(x), groups)),
+        nn(JV._attn_apply(p, jnp.asarray(x), groups)), **TOL)
 
 
 def test_clip_image_embed_matches_jax():
