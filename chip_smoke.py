@@ -36,9 +36,11 @@ Phases, in order; any failure exits non-zero:
    flash kernel (``flash_attention_wide``) at the VAE mid block's one head
    of d = 512 over a bench VAE chunk (B = 8, S = 6272), the encode's last
    chunk (B = 1), edit's 9604 tokens, 256x256's 1024 and a ragged 1100 /
-   1000, and at 2 heads of 192, beside SDPA on the first pinned backend
-   (``decomp/vit.py::SDPA_BACKENDS``) that takes the shape, named, and
-   twice at the first case (equal bits);
+   1000 and 1036 / 980 (a last query tile of 12 rows, a last key tile of
+   20), and at 2 heads of 192, beside SDPA on the first pinned backend
+   (``decomp/vit.py::SDPA_BACKENDS``) that takes the shape, named, twice at
+   B = 8 S = 6272 and at S = 9604 (equal bits), each logging its estimated
+   shared-memory fill from L2 and the rate it implies;
 4. flash ablation builds (``mimo_tpu_torch.tools.ablate_flash``, the
    production kernel's body at each mode): ``full`` equal in every bit to
    the production kernel (``flash_attention_nt``) at UNet levels 0 and 1
@@ -327,41 +329,31 @@ def phase_build() -> None:
         f"{'built in %.1f s' % secs if secs is not None else 'cached'} "
         f"(load {time.perf_counter() - t0:.1f} s)")
     # ptxas -v: registers and spills of each kernel (mangled names), and
-    # any warning (C7508: setmaxnreg ignored); the ablation builds'
+    # any warning (C7508: setmaxnreg ignored) or note of a performance loss
+    # (C7515 / C7520: wgmma products serialized); the ablation builds'
     # (flash_ablate_kernel<d, mode, pretransposed>) are summed up after
     from mimo_tpu_torch.tools.ablate_flash import MODES
-    name = None
-    bad = []
+    kernels, notes = _build.ptxas_report(_build.build_log())
+    bad = [n for n in notes if "setmaxnreg" in n]
     ablation = []
-    for line in _build.build_log().splitlines():
-        if "warning" in line:
-            log(f"  {line.strip()}")
-            if "setmaxnreg" in line:
-                bad.append(line.strip())
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "spill stores" in line and name:
-            spills = line.strip()
-        elif "Used" in line and "registers" in line and name:
-            regs = line.split("Used")[1].split(",")[0].strip()
-            inst = re.search(r"flash_ablate_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                             name)
-            if inst:
-                d, mode, pre = inst.groups()
-                ablation.append(f"d={d} {MODES[int(mode)]}"
-                                f"{' pretransposed' if pre == '1' else ''}: "
-                                f"{regs}; {spills}")
-            else:
-                log(f"  ptxas {name}: {regs}; {spills}")
-            if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
-                                        "flash_wide_kernel",
-                                        "tattn_kernel", "gn_kernel",
-                                        "gn_resident_kernel",
-                                        "ln_rows_kernel",
-                                        "ln_rows_wide_kernel")) \
-                    and not spills.startswith("0 bytes"):
-                bad.append(f"{name}: {spills}")
-            name = None
+    for line in notes:
+        log(f"  {line}")
+    for name, regs, spills in kernels:
+        inst = re.search(r"flash_ablate_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                         name)
+        if inst:
+            d, mode, pre = inst.groups()
+            ablation.append(f"d={d} {MODES[int(mode)]}"
+                            f"{' pretransposed' if pre == '1' else ''}: "
+                            f"{regs}; {spills}")
+        else:
+            log(f"  ptxas {name}: {regs}; {spills}")
+        if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
+                                    "flash_wide_kernel", "tattn_kernel",
+                                    "gn_kernel", "gn_resident_kernel",
+                                    "ln_rows_kernel", "ln_rows_wide_kernel")) \
+                and not spills.startswith("0 bytes"):
+            bad.append(f"{name}: {spills}")
     log(f"  flash ablation builds ({len(ablation)}; a spill there counts in "
         f"full - mode):")
     for line in sorted(ablation, key=lambda x: (int(x[2:4]), x)):
@@ -565,17 +557,22 @@ def phase_kernels():
 
 # the wide flash kernel (flash_attention_wide) at the VAE mid block's one
 # head of d = 512: (heads, d, batch, sq, sk, path) of a bench vae_chunk of 8
-# frames at 512x784, the encode's last chunk (1 frame: 98 query tiles, under
-# one wave), edit's 784x784 (the plain version's logits 315 MB a 1024-query
-# chunk), the animate CLI's 256x256, ragged query and key edges; and 2
-# heads of 192 (3 boxes of 64 columns split 2 / 1 between the two
-# warpgroups, the second head at a column offset)
+# frames at 512x784, the encode's last chunk (1 frame: 49 query tiles of
+# 128, 98 blocks, under one wave), edit's 784x784 (the plain version's
+# logits 315 MB a 1024-query chunk), the animate CLI's 256x256, ragged
+# query and key edges; 1036 / 980: the last query tile's 12 rows leave its
+# second warpgroup none, and the last key tile holds 20 keys; and 2 heads
+# of 192 (3 boxes of 64 columns split 2 / 1 between the two blocks of a
+# query tile, the second head at a column offset). The first case and
+# S = 9604 run twice (equal bits).
 WIDE_CASES = [(1, 512, 8, 6272, 6272, "animate"),
               (1, 512, 1, 6272, 6272, "animate"),
               (1, 512, 8, 9604, 9604, "edit"),
               (1, 512, 8, 1024, 1024, "animate"),
               (1, 512, 2, 1100, 1000, "animate"),
+              (1, 512, 2, 1036, 980, "animate"),
               (2, 192, 2, 1100, 1000, "animate")]
+WIDE_TWICE = {(1, 512, 8, 6272, 6272), (1, 512, 8, 9604, 9604)}
 
 
 def sdpa_backend_call(q, k, v, heads):
@@ -606,7 +603,12 @@ def wide_flash_cases(FA, randn, why):
     """``flash_attention_wide`` against its plain version at WIDE_CASES,
     inputs scaled as the flash cases' (logits of a few units), beside SDPA
     on the first pinned backend that takes d = 512 (SDPA's flash backend
-    stops at d = 256); the first case twice, which must give equal bits."""
+    stops at d = 256); the WIDE_TWICE cases twice, which must give equal
+    bits. Each case also logs the estimated bytes the kernel's blocks
+    receive into shared memory from L2 (``tools/time_flash_wide.py::
+    fill_bytes``) and the rate its time implies; neither is measured, and
+    neither enters the kernels' JSON line."""
+    from mimo_tpu_torch.tools.time_flash_wide import fill_bytes
     entries = []
     for heads, d, b, sq, sk, path in WIDE_CASES:
         inner = heads * d
@@ -619,7 +621,7 @@ def wide_flash_cases(FA, randn, why):
         label = f"flash_attention_wide d={d} H={heads} B={b} Sq={sq} Sk={sk}"
         err = check_close(label, got, want, 2e-2, 2e-2, why)
         del got, want
-        if not entries:
+        if (heads, d, b, sq, sk) in WIDE_TWICE:
             bit_equal(label,
                       lambda: FA.flash_attention_wide(q, k, v, heads))
         entries.append(kernel_entry(
@@ -630,6 +632,10 @@ def wide_flash_cases(FA, randn, why):
             flash_work(b, heads, d, sq, sk,
                        q.numel() + k.numel() + v.numel()),
             sdpa_backend_call(q, k, v, heads), path))
+        fill = fill_bytes(b, heads, d, sq, sk)
+        log(f"    shared-memory fill from L2 (estimated): {fill / 1e9:.3f} "
+            f"GB, {fill / (entries[-1]['ms'] * 1e-3) / 1e12:.2f} TB/s at "
+            f"the kernel's time")
         entries[-1]["width"] = d
     return entries
 

@@ -285,6 +285,38 @@ MIMO_WGMMA_RS(40) MIMO_WGMMA_RS(48) MIMO_WGMMA_RS(56) MIMO_WGMMA_RS(64)
 MIMO_WGMMA_RS(72) MIMO_WGMMA_RS(80) MIMO_WGMMA_RS(88) MIMO_WGMMA_RS(96)
 MIMO_WGMMA_RS(104) MIMO_WGMMA_RS(112) MIMO_WGMMA_RS(120) MIMO_WGMMA_RS(128)
 MIMO_WGMMA_RS(136) MIMO_WGMMA_RS(144) MIMO_WGMMA_RS(152) MIMO_WGMMA_RS(160)
+// the widest products (flash_wide.cu's P.V over 192 or 256 columns of O
+// at once): the accumulators of m64n168 ... m64n256, then the A
+// registers, B descriptor and scale-d flag after them
+#define MIMO_WG_R168 MIMO_WG_R160 ", %80, %81, %82, %83"
+#define MIMO_WG_D168 MIMO_WG_D160, MIMO_WG_F4(80)
+#define MIMO_WG_R176 MIMO_WG_R168 ", %84, %85, %86, %87"
+#define MIMO_WG_D176 MIMO_WG_D168, MIMO_WG_F4(84)
+#define MIMO_WG_R184 MIMO_WG_R176 ", %88, %89, %90, %91"
+#define MIMO_WG_D184 MIMO_WG_D176, MIMO_WG_F4(88)
+#define MIMO_WG_R192 MIMO_WG_R184 ", %92, %93, %94, %95"
+#define MIMO_WG_D192 MIMO_WG_D184, MIMO_WG_F4(92)
+#define MIMO_WG_R200 MIMO_WG_R192 ", %96, %97, %98, %99"
+#define MIMO_WG_D200 MIMO_WG_D192, MIMO_WG_F4(96)
+#define MIMO_WG_R208 MIMO_WG_R200 ", %100, %101, %102, %103"
+#define MIMO_WG_D208 MIMO_WG_D200, MIMO_WG_F4(100)
+#define MIMO_WG_R216 MIMO_WG_R208 ", %104, %105, %106, %107"
+#define MIMO_WG_D216 MIMO_WG_D208, MIMO_WG_F4(104)
+#define MIMO_WG_R224 MIMO_WG_R216 ", %108, %109, %110, %111"
+#define MIMO_WG_D224 MIMO_WG_D216, MIMO_WG_F4(108)
+#define MIMO_WG_R232 MIMO_WG_R224 ", %112, %113, %114, %115"
+#define MIMO_WG_D232 MIMO_WG_D224, MIMO_WG_F4(112)
+#define MIMO_WG_R240 MIMO_WG_R232 ", %116, %117, %118, %119"
+#define MIMO_WG_D240 MIMO_WG_D232, MIMO_WG_F4(116)
+#define MIMO_WG_R248 MIMO_WG_R240 ", %120, %121, %122, %123"
+#define MIMO_WG_D248 MIMO_WG_D240, MIMO_WG_F4(120)
+#define MIMO_WG_R256 MIMO_WG_R248 ", %124, %125, %126, %127"
+#define MIMO_WG_D256 MIMO_WG_D248, MIMO_WG_F4(124)
+#define MIMO_WG_A192 "{%96, %97, %98, %99}, %100"
+#define MIMO_WG_S192 "%101"
+#define MIMO_WG_A256 "{%128, %129, %130, %131}, %132"
+#define MIMO_WG_S256 "%133"
+MIMO_WGMMA_RS(192) MIMO_WGMMA_RS(256)
 #undef MIMO_WGMMA_RS
 
 // The same with B K-major (no transpose bit): N rows of 16 K values

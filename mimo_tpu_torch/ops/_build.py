@@ -143,6 +143,42 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def build_alone(src: str, entry: str, signature=None):
+    """``src`` built alone with nvcc into a temporary directory (it may
+    include ``csrc/``'s headers), for timing an earlier design beside the
+    package's kernel. Returns (``entry`` bound with ``signature`` =
+    (argtypes, restype), by default its ``_SIGNATURES`` line; nvcc's
+    output)."""
+    so = Path(tempfile.mkdtemp(prefix="alone.")) / "libalone.so"
+    res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-I",
+                          str(CSRC), "-o", str(so), src],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes, fn.restype = signature or _SIGNATURES[entry]
+    return fn, res.stdout + res.stderr
+
+
+def ptxas_report(log: str):
+    """From nvcc's ``-Xptxas -v`` output: ([(mangled kernel name, "N
+    registers", its spill line), ...], [each warning and each "Performance
+    Loss" note, e.g. C7520: wgmma products serialized])."""
+    kernels, notes, name, spills = [], [], None, ""
+    for line in log.splitlines():
+        if "warning" in line or "Performance Loss" in line:
+            notes.append(line.strip())
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            kernels.append(
+                (name, line.split("Used")[1].split(",")[0].strip(), spills))
+            name = None
+    return kernels, notes
+
+
 def build_seconds() -> Optional[float]:
     """Wall time of the nvcc build in this process (None if it loaded a
     library built earlier)."""

@@ -20,9 +20,6 @@ import argparse
 import ctypes
 import json
 import math
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
@@ -57,17 +54,10 @@ def sdpa_inputs(qkv, b, f, s, heads):
 
 def build_old(src: str):
     """OLD.cu built alone, its entry point bound with the old signature."""
-    out_dir = Path(tempfile.mkdtemp(prefix="tattn_old."))
-    so = out_dir / "libold.so"
-    res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared",
-                          "-I", str(_build.CSRC), "-o", str(so), src],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
-    fn = ctypes.CDLL(str(so)).mimo_temporal_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn, _ = _build.build_alone(
+        src, "mimo_temporal_attention_fwd",
+        ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int))
 
     def run(qkv, b, f, s, heads):
         c = qkv.shape[1] // 3

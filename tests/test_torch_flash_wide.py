@@ -8,14 +8,19 @@ Tolerance: atol 2e-5, as tests/test_torch_attention.py holds the other flash
 kernels (fp32 on both sides; only the summation order differs).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from mimo_tpu.ops import attention as JA
+from mimo_tpu_torch.ops import _build
 from mimo_tpu_torch.ops import attention as A
 from mimo_tpu_torch.ops import flash_attention as FA
+from mimo_tpu_torch.tools import time_flash_wide as TW
 from tests.test_ops import _sdpa_oracle
 from tests.test_torch_helpers import nn, set_fp32_matmuls, tt
 
@@ -30,11 +35,16 @@ def _rand(rng, *shape):
 
 # (b, sq, sk, heads, d): the VAE mid block's one head of 512 at ragged
 # query and key counts (not multiples of the 128 the JAX kernel pads to, nor
-# of the card kernel's 64-row tiles), and two heads
+# of the card kernel's 128-row query tiles or 64-key tiles), and two heads;
+# 150 / 84: a last query tile of 22 rows (its second warpgroup's rows all
+# past Sq) and a last key tile of 20 keys, at one head of 512 and two of
+# 192 (3 boxes of columns split 2 / 1 between a tile's two blocks)
 @pytest.mark.parametrize("b,sq,sk,heads,d", [
     (1, 200, 136, 1, 512),
     (2, 130, 260, 1, 512),
     (1, 72, 100, 2, 512),
+    (1, 150, 84, 1, 512),
+    (1, 150, 84, 2, 192),
 ])
 def test_wide_plain_matches_flash_sdpa_and_oracle(b, sq, sk, heads, d):
     rng = np.random.default_rng(7)
@@ -136,3 +146,60 @@ def test_wide_wrapper_counts_only_kernel_launches():
     FA.flash_attention_wide(q, k, v, 1)
     assert (FA.flash_attention_wide.launches,
             dict(FA.flash_attention_wide.widths)) == before
+
+
+WIDE_SRC = (Path(FA.__file__).parents[1] / "csrc" / "flash_wide.cu").read_text()
+
+
+def _wide_const(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", WIDE_SRC)[1])
+
+
+def test_fill_plan_matches_kernel():
+    """tools/time_flash_wide.py's byte estimate sizes the kernel's tiles:
+    kWideBQ query rows a block and kWideBK keys a K / V tile (the tiles'
+    fit in shared memory is WideTile<D>'s static_assert, at build time)."""
+    assert (TW.PLAN[0], TW.TILE) == (_wide_const("kWideBQ"),
+                                     _wide_const("kWideBK"))
+
+
+@pytest.mark.parametrize("plan,fill", [
+    # B = 8, S = 6272, d = 512: 98 key tiles
+    (TW.FIRST_PLAN, 784 * (64 * 1024 + 98 * 2 * 65536)),
+    (TW.PLAN, 784 * (128 * 1024 + 98 * (65536 + 32768))),
+])
+def test_fill_bytes(plan, fill):
+    """The shared-memory fill of one B = 8, S = 6272 call, counted by hand:
+    784 blocks of 64 rows (the first design: each 64 KB of Q and 98 K and
+    V tiles of 64 KB), or 784 blocks of 128 rows, a pair a query tile,
+    each taking 128 KB of Q, 98 K tiles and 98 half V tiles."""
+    assert TW.fill_bytes(8, 1, 512, 6272, 6272, plan) == fill
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19gn_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19gn_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+ptxas info    : (C7519) warpgroup.arrive is injected in around line 399 by compiler to allow use of registers in GMMA in function '_ZN12_GLOBAL__N_117flash_wide_kernelILi512EEEv9FlashArgs'
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to program dependence on compiler-inserted WG.AR in divergent path in the function '_ZN12_GLOBAL__N_117flash_wide_kernelILi512EEEv9FlashArgs'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_wide_kernelILi512EEEv9FlashArgs' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_wide_kernelILi512EEEv9FlashArgs
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 186 registers, used 1 barriers, 432 bytes cmem[0]
+"""
+
+
+def test_registers_reads_ptxas_log():
+    """The tool's ptxas summary (through _build.ptxas_report): each
+    flash_wide_kernel<d>'s registers and spill line, and the notes of a
+    performance loss that name it; other kernels and plain infos left
+    out."""
+    kernels, notes = _build.ptxas_report(PTXAS_LOG)
+    assert [(n.split("_N_")[1][:20], r) for n, r, _ in kernels] == [
+        ("19gn_kernelEv", "40 registers"),
+        ("117flash_wide_kernel", "186 registers")]
+    assert len(notes) == 1 and "(C7520)" in notes[0]
+    assert TW.registers(PTXAS_LOG) == [
+        notes[0], "d=512: 186 registers; 0 bytes stack frame, 8 bytes spill "
+        "stores, 8 bytes spill loads"]
