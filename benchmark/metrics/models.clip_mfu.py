@@ -1,0 +1,13 @@
+"""models.clip_mfu: the FLOPs of every clip of the window (``work/count.py``)
+over the window's seconds and the card's bf16 peak, %."""
+
+from benchmark.work import peaks
+
+
+def read(rec):
+    work = rec["work"]
+    if work is None:
+        return None
+    done = sum(1 for c in rec["clips"] if c["ok"])
+    return (100.0 * done * work["clip_flops"]
+            / (rec["window_s"] * peaks.PEAK_BF16))
