@@ -156,10 +156,9 @@ def run(params, st: pose2vid.Pose2VideoStatic, inputs: Sequence[torch.Tensor],
 
     clock = pose2vid.PhaseClock(dev)
     generate(steps=TIMED_STEPS, clock=clock)
-    ms = clock.durations_ms()
-    t_prep, t_dec = ms["prepare"] / 1e3, ms["decode"] / 1e3
-    t_step = sum(ms[f"step{i}"] for i in range(TIMED_STEPS)) / (
-        TIMED_STEPS * 1e3)
+    tm = clock.timings()
+    t_prep, t_step, t_dec = (tm[k] / 1e3
+                             for k in ("prepare", "step_mean", "decode"))
     log(f"prepare: {t_prep:.3f} s; step: {t_step:.3f} s (mean of "
         f"{TIMED_STEPS}); decode: {t_dec:.3f} s")
 

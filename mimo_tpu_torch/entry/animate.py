@@ -35,29 +35,33 @@ def animate(runner: Runner, ref_img: np.ndarray,
     """Returns the (F', height, width, 3) float video in [0, 1], F' = F or
     (F-1)*interpolation_factor + 1 when the factor is >= 2.
     ``template``: a template directory, or the sdc pose frames as (H, W, 3)
-    uint8 arrays."""
-    if isinstance(template, (str, os.PathLike)):
-        pose_frames = load_template(os.fspath(template),
-                                    max_frames=max_frames).sdc
-    else:
-        pose_frames = list(template)[:max_frames]
-    if not pose_frames:
-        raise ValueError("template has no pose frames")
-    ref = prep_reference_image(ref_img)
+    uint8 arrays. The call is one clip of ``runner`` (``Runner.clip``):
+    its spans and phases are in ``runner.last_timings`` when it returns."""
+    with runner.clip("entry.animate") as clock:
+        with clock.span("entry.template"):
+            if isinstance(template, (str, os.PathLike)):
+                pose_frames = load_template(os.fspath(template),
+                                            max_frames=max_frames).sdc
+            else:
+                pose_frames = list(template)[:max_frames]
+            if not pose_frames:
+                raise ValueError("template has no pose frames")
+            h, w = pose_frames[0].shape[:2]
+            bk_frames = FU.init_bk(len(pose_frames), h, w)
+            pose_frames, bk_frames, _ = FU.crop_human(pose_frames, bk_frames)
+            padded_pose = [FU.pad_img(p, (0, 0, 0))[0] for p in pose_frames]
+            padded_bk = [FU.pad_img(b, (255, 255, 255))[0] for b in bk_frames]
+            # the crops are views of the full-size frames: freeing those
+            # takes milliseconds, which belong to this span
+            del pose_frames, bk_frames
+        with clock.span("entry.reference"):
+            ref = prep_reference_image(ref_img)
 
-    h, w = pose_frames[0].shape[:2]
-    bk_frames = FU.init_bk(len(pose_frames), h, w)
-    pose_frames, bk_frames, _ = FU.crop_human(pose_frames, bk_frames)
-
-    padded_pose, padded_bk = [], []
-    for p, b in zip(pose_frames, bk_frames):
-        padded_pose.append(FU.pad_img(p, (0, 0, 0))[0])
-        padded_bk.append(FU.pad_img(b, (255, 255, 255))[0])
-
-    return runner.generate(ref, padded_pose, padded_bk, width=width,
-                           height=height, steps=steps, cfg_scale=cfg_scale,
-                           seed=seed,
-                           interpolation_factor=interpolation_factor)
+        return runner.generate(ref, padded_pose, padded_bk, width=width,
+                               height=height, steps=steps,
+                               cfg_scale=cfg_scale, seed=seed,
+                               interpolation_factor=interpolation_factor,
+                               clock=clock)
 
 
 def main(argv=None):

@@ -91,36 +91,43 @@ def edit(runner: Runner, ref_img: np.ndarray,
          max_frames: int = 150) -> List[np.ndarray]:
     """The edited video as (H, W, 3) uint8 frames at the template's size.
     ``template``: a template directory, or a ``Template`` in memory (its
-    streams are cut to ``max_frames``); either needs a background (bk)."""
-    if isinstance(template, (str, os.PathLike)):
-        tpl = load_template(os.fspath(template), max_frames=max_frames,
-                            require_bk=True)
-    else:
-        tpl = template
-        if tpl.bk is None:
-            raise FileNotFoundError(f"{tpl.path}/bk.mp4 required for the "
-                                    f"edit flow")
-    sdc = list(tpl.sdc)[:max_frames]
-    bk_ori = list(tpl.bk)[:max_frames]
-    vid_ori = list(tpl.vid)[:max_frames] if tpl.vid else bk_ori
-    occ_ori = list(tpl.occ)[:max_frames] if tpl.occ is not None else None
-    ref = prep_reference_image(ref_img)
+    streams are cut to ``max_frames``); either needs a background (bk).
+    The call is one clip of ``runner`` (``Runner.clip``): its spans and
+    phases, the paste-back's included, are in ``runner.last_timings`` when
+    it returns."""
+    with runner.clip("entry.edit") as clock:
+        with clock.span("entry.template"):
+            if isinstance(template, (str, os.PathLike)):
+                tpl = load_template(os.fspath(template),
+                                    max_frames=max_frames, require_bk=True)
+            else:
+                tpl = template
+                if tpl.bk is None:
+                    raise FileNotFoundError(f"{tpl.path}/bk.mp4 required for "
+                                            f"the edit flow")
+            sdc = list(tpl.sdc)[:max_frames]
+            bk_ori = list(tpl.bk)[:max_frames]
+            vid_ori = list(tpl.vid)[:max_frames] if tpl.vid else bk_ori
+            occ_ori = (list(tpl.occ)[:max_frames] if tpl.occ is not None
+                       else None)
+            pose_c, _, bk_c, _, context_list, bbox_clip_list = \
+                FU.crop_human_clip_auto_context(sdc, vid_ori, bk_ori, OVERLAY)
+            pose_in, bk_in, pad_info = [], [], []
+            for p, b in zip(pose_c, bk_c):
+                pose_in.append(FU.pad_img(p, (0, 0, 0))[0])
+                bb, padding_v = FU.pad_img(b, (255, 255, 255))
+                bk_in.append(bb)
+                pad_info.append((bb.shape[0], bb.shape[1], padding_v))
+        with clock.span("entry.reference"):
+            ref = prep_reference_image(ref_img)
 
-    pose_c, _, bk_c, _, context_list, bbox_clip_list = \
-        FU.crop_human_clip_auto_context(sdc, vid_ori, bk_ori, OVERLAY)
+        video = runner.generate(ref, pose_in, bk_in, width=width,
+                                height=height, steps=steps,
+                                cfg_scale=cfg_scale, seed=seed, clock=clock)
 
-    pose_in, bk_in, pad_info = [], [], []
-    for p, b in zip(pose_c, bk_c):
-        pose_in.append(FU.pad_img(p, (0, 0, 0))[0])
-        bb, padding_v = FU.pad_img(b, (255, 255, 255))
-        bk_in.append(bb)
-        pad_info.append((bb.shape[0], bb.shape[1], padding_v))
-
-    video = runner.generate(ref, pose_in, bk_in, width=width, height=height,
-                            steps=steps, cfg_scale=cfg_scale, seed=seed)
-
-    return composite_back(video, context_list, bbox_clip_list, pad_info,
-                          bk_ori, vid_ori, occ_ori)
+        with clock.span("entry.paste_back"):
+            return composite_back(video, context_list, bbox_clip_list,
+                                  pad_info, bk_ori, vid_ori, occ_ori)
 
 
 def main(argv=None):

@@ -16,7 +16,6 @@ import argparse
 import subprocess
 import time
 
-import numpy as np
 import torch
 
 from mimo_tpu_torch.bench import make_inputs
@@ -53,15 +52,15 @@ def main(argv=None) -> None:
         clock = pose2vid.PhaseClock(dev)
         t0 = time.perf_counter()
         pose2vid.generate_host_loop(params, st, *inputs, clock=clock)
-        ms = clock.durations_ms()
+        tm = clock.timings()
         wall = time.perf_counter() - t0
-        steps = [ms[f"step{i}"] for i in range(args.steps)]
+        steps = tm["step_ms"]
         print(f"{run}: {args.frames} frames {args.height}x{args.width}, "
               f"{args.steps} steps: wall {wall:.3f} s = "
               f"{args.frames / wall:.4f} frames/s | prepare "
-              f"{ms['prepare']:.1f} ms | step mean {np.mean(steps):.1f} ms "
+              f"{tm['prepare']:.1f} ms | step mean {tm['step_mean']:.1f} ms "
               f"(min {min(steps):.1f}, max {max(steps):.1f}) | decode "
-              f"{ms['decode']:.1f} ms", flush=True)
+              f"{tm['decode']:.1f} ms", flush=True)
 
     # one denoise step under the profiler
     with torch.inference_mode():

@@ -3,11 +3,13 @@
 Counterpart of ``mimo_tpu/entry/runner.py``: ``init_random_params``,
 ``load_params``, ``prep_reference_image`` and ``Runner.generate``. The
 host prepares fixed-size batches once; the device runs
-``pipelines.pose2vid.generate_host_loop``.
+``pipelines.pose2vid.generate_host_loop``. ``Runner.clip`` opens a clip's
+span recorder (``pose2vid.PhaseClock``) for an entry call.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -77,9 +79,11 @@ class Runner:
     params: Dict[str, Any]
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
-    # per-phase times (ms) of the last generate(): prepare, step_mean,
-    # decode, steps
-    last_timings: Dict[str, float] = field(default_factory=dict)
+    # the last clip's record (PhaseClock.timings): prepare, step_mean,
+    # decode and step_ms (device, ms), steps, clip and spans (host)
+    last_timings: Dict[str, Any] = field(default_factory=dict)
+    # the id of the last clip begun; every span of a clip carries it
+    clip_id: int = 0
     # sharding over a parallel.ProcessMesh (Pose2VideoStatic's fields of
     # the same names); every rank calls generate with the same inputs
     mesh: Any = None
@@ -87,50 +91,80 @@ class Runner:
     frame_axis: Optional[str] = None
     pad_windows_to: int = 1
 
+    def clock(self) -> pose2vid.PhaseClock:
+        """A span recorder for the next clip."""
+        self.clip_id += 1
+        return pose2vid.PhaseClock(self.device, clip=self.clip_id)
+
+    @contextlib.contextmanager
+    def clip(self, name: str):
+        """One entry call: yields a new clip's recorder with its root span
+        ``name`` open; ``last_timings`` takes the clip's record when the
+        block returns."""
+        clock = self.clock()
+        with clock.span(name):
+            yield clock
+        self.last_timings = clock.timings()
+
     def generate(self, ref_image: np.ndarray, pose_frames: List[np.ndarray],
                  bk_frames: List[np.ndarray], *, width: int, height: int,
                  steps: int, cfg_scale: float, seed: int,
                  window_chunk: Optional[int] = None,
-                 interpolation_factor: int = 0) -> np.ndarray:
+                 interpolation_factor: int = 0,
+                 clock: Optional[pose2vid.PhaseClock] = None) -> np.ndarray:
         """ref_image: (h, w, 3) uint8 prepared reference; pose/bk frames:
         uint8 lists of any size (resized here). Returns
         (F', height, width, 3) float32 in [0, 1]: F' = F, or
-        (F-1)*interpolation_factor + 1 when the factor is >= 2."""
+        (F-1)*interpolation_factor + 1 when the factor is >= 2.
+
+        ``clock``: the clip's recorder, whose caller sets ``last_timings``
+        (``Runner.clip``); without one the generation is a clip of its own
+        and sets it here. The host's work runs in the spans
+        ``entry.inputs`` (resizes, normalisation, the noise draw, the
+        copies to the device) and ``entry.output`` (the copy back, after
+        the one wait for the decode)."""
+        own = clock is None
+        clock = clock or self.clock()
         num_frames = len(pose_frames)
         dev, dt = self.device, self.dtype
 
         def tensor(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
 
-        ref = FU.resize_frame(ref_image, width, height)
-        ref = (ref.astype(np.float32) / 255.0) * 2.0 - 1.0
-        pose = np.stack([FU.resize_frame(f, width, height)
-                         for f in pose_frames]).astype(np.float32) / 255.0
-        bk = np.stack([FU.resize_frame(f, width, height)
-                       for f in bk_frames]).astype(np.float32) / 255.0
-        bk = bk * 2.0 - 1.0
-        cs = self.cfg.clip_vision.image_size
-        clip_in = FU.resize_frame(ref_image, cs, cs).astype(np.float32) / 255.0
-        clip_px = CV.clip_preprocess(torch.from_numpy(clip_in))
+        with clock.span("entry.inputs"):
+            # the clip's full-size float arrays live on the host only here:
+            # freeing them takes milliseconds, which belong to this span
+            ref = FU.resize_frame(ref_image, width, height)
+            ref = tensor((ref.astype(np.float32) / 255.0) * 2.0 - 1.0)
+            pose = tensor(np.stack([FU.resize_frame(f, width, height)
+                                    for f in pose_frames]).astype(np.float32)
+                          / 255.0)
+            bk = tensor((np.stack([FU.resize_frame(f, width, height)
+                                   for f in bk_frames]).astype(np.float32)
+                         / 255.0) * 2.0 - 1.0)
+            cs = self.cfg.clip_vision.image_size
+            clip_in = (FU.resize_frame(ref_image, cs, cs).astype(np.float32)
+                       / 255.0)
+            clip_px = CV.clip_preprocess(torch.from_numpy(clip_in))
 
-        ds = self.cfg.vae.downscale
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        noise = torch.randn((num_frames, height // ds, width // ds, 4),
-                            generator=gen, device=dev)
+            ds = self.cfg.vae.downscale
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            noise = torch.randn((num_frames, height // ds, width // ds, 4),
+                                generator=gen, device=dev)
 
-        st = pose2vid.Pose2VideoStatic(
-            cfg=self.cfg, num_frames=num_frames, height=height, width=width,
-            num_inference_steps=steps, guidance_scale=cfg_scale,
-            window_chunk=window_chunk, pad_windows_to=self.pad_windows_to,
-            mesh_axis=self.mesh_axis, frame_axis=self.frame_axis,
-            mesh=self.mesh, interpolation_factor=interpolation_factor)
-        clock = pose2vid.PhaseClock(dev)
-        out = pose2vid.generate_host_loop(
-            self.params, st, tensor(ref), tensor(pose), tensor(bk),
-            clip_px.to(dev, dt), noise.to(dt), clock=clock)
-        ms = clock.durations_ms()
-        step_ms = [ms[f"step{i}"] for i in range(steps)]
-        self.last_timings = {"prepare": ms["prepare"],
-                             "step_mean": sum(step_ms) / len(step_ms),
-                             "decode": ms["decode"], "steps": steps}
-        return out.float().cpu().numpy()
+            st = pose2vid.Pose2VideoStatic(
+                cfg=self.cfg, num_frames=num_frames, height=height,
+                width=width, num_inference_steps=steps,
+                guidance_scale=cfg_scale, window_chunk=window_chunk,
+                pad_windows_to=self.pad_windows_to, mesh_axis=self.mesh_axis,
+                frame_axis=self.frame_axis, mesh=self.mesh,
+                interpolation_factor=interpolation_factor)
+            inputs = (ref, pose, bk, clip_px.to(dev, dt), noise.to(dt))
+        out = pose2vid.generate_host_loop(self.params, st, *inputs,
+                                          clock=clock)
+        clock.durations_ms()
+        with clock.span("entry.output"):
+            video = out.float().cpu().numpy()
+        if own:
+            self.last_timings = clock.timings()
+        return video

@@ -37,9 +37,10 @@ Sharding over a ``parallel.ProcessMesh`` (one process a rank; the modes of
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ from mimo_tpu_torch.parallel import comm
 from mimo_tpu_torch.pipelines.context import compute_windows
 from mimo_tpu_torch.pipelines.interp import interpolate_latents
 from mimo_tpu_torch.schedulers.ddim import DDIM
+from mimo_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -99,15 +101,31 @@ class Pose2VideoStatic:
 
 
 class PhaseClock:
-    """Phase boundaries of one generation: CUDA events on the device's
-    timeline when it runs on CUDA, the host clock otherwise. Recording an
-    event does not synchronise; ``durations_ms`` does, once."""
+    """The span recorder of one clip: its device phases and its host spans.
 
-    def __init__(self, device: torch.device):
+    Device phases: ``mark`` records a CUDA event on the device's timeline
+    when it runs on CUDA, the host clock otherwise; ``durations_ms`` turns
+    the marks into phases and, the first time after the last mark, waits
+    for that mark once. Recording an event does not synchronise.
+
+    Host spans: ``span(name)`` opens a profiler range of that name
+    (``utils.profiling.annotate``), so a trace of the call names the host's
+    work by it, and records ``{"name", "parent", "clip", "start", "end"}``
+    in ``spans``: the enclosing span's name (None for the root), the clip's
+    id and the host clock in ms from the clock's creation. A span never
+    synchronises."""
+
+    def __init__(self, device: torch.device, clip: int = 0):
         self.cuda = torch.device(device).type == "cuda"
+        self.clip = clip
         self.marks = []
+        self.spans: List[Dict[str, Any]] = []
+        self._open: List[str] = []
+        self._t0 = time.perf_counter()
+        self._durations: Optional[Dict[str, float]] = None
 
     def mark(self, name: str) -> None:
+        self._durations = None
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
@@ -117,13 +135,42 @@ class PhaseClock:
 
     def durations_ms(self) -> Dict[str, float]:
         """{phase: ms} from each mark to the next."""
-        if self.cuda:
-            self.marks[-1][1].synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = (a.elapsed_time(b) if self.cuda
-                         else (b - a) * 1e3)
-        return out
+        if self._durations is None:
+            if self.cuda:
+                self.marks[-1][1].synchronize()
+            self._durations = {
+                name: (a.elapsed_time(b) if self.cuda else (b - a) * 1e3)
+                for (_, a), (name, b) in zip(self.marks, self.marks[1:])}
+        return dict(self._durations)
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        rec = {"name": name, "parent": self._open[-1] if self._open else None,
+               "clip": self.clip, "start": self._ms(), "end": None}
+        self.spans.append(rec)
+        self._open.append(name)
+        try:
+            with profiling.annotate(name):
+                yield
+        finally:
+            self._open.pop()
+            rec["end"] = self._ms()
+
+    def _ms(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e3
+
+    def timings(self) -> Dict[str, Any]:
+        """The clip's record, as ``Runner.last_timings`` holds it, from the
+        marks of ``generate_host_loop``: ``prepare``, ``step_mean``,
+        ``decode`` and ``step_ms`` (each step) in ms on the device's
+        timeline, ``steps``, ``clip`` and ``spans`` (host)."""
+        ms = self.durations_ms()
+        step_ms = [v for k, v in ms.items() if k.startswith("step")]
+        return {"prepare": ms["prepare"],
+                "step_mean": sum(step_ms) / len(step_ms),
+                "decode": ms["decode"], "steps": len(step_ms),
+                "step_ms": step_ms, "clip": self.clip,
+                "spans": [dict(s) for s in self.spans]}
 
 
 def chunked_apply(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -161,10 +208,12 @@ def prepare_conditioning(params: Params, st: Pose2VideoStatic,
     frames and the pose guider run on this rank's block of frames: kept
     there in "frame" mode (the frames must split evenly), gathered over the
     frame axis in "2d" mode (``comm.gather_blocks``: the clip padded with
-    its last frame)."""
+    its last frame). Each encoder runs in a profiler range of its own,
+    ``pipeline.prepare.<encoder>``."""
     cfg = st.cfg
-    image_embeds = CV.clip_image_embed(params["clip"], cfg.clip_vision,
-                                       clip_pixels[None])          # (1, 768)
+    with profiling.annotate("pipeline.prepare.clip"):
+        image_embeds = CV.clip_image_embed(params["clip"], cfg.clip_vision,
+                                           clip_pixels[None])      # (1, 768)
     ctx_cond = image_embeds[:, None, :]
     ctx_uncond = torch.zeros_like(ctx_cond)
 
@@ -187,15 +236,19 @@ def prepare_conditioning(params: Params, st: Pose2VideoStatic,
             refs.append(ref)
             return lat
 
-        bk_latents = comm.gather_blocks(encode_block, bk_video, group)
+        with profiling.annotate("pipeline.prepare.vae_encode"):
+            bk_latents = comm.gather_blocks(encode_block, bk_video, group)
         ref_latents = refs[0]
-        pose_fea = comm.gather_blocks(pose_guider, pose_video, group)
+        with profiling.annotate("pipeline.prepare.pose_guider"):
+            pose_fea = comm.gather_blocks(pose_guider, pose_video, group)
     else:
         if st.mode == "frame":
             block = _frame_block(st, bk_video.shape[0])
             bk_video, pose_video = bk_video[block], pose_video[block]
-        ref_latents, bk_latents = encode(bk_video)
-        pose_fea = pose_guider(pose_video)
+        with profiling.annotate("pipeline.prepare.vae_encode"):
+            ref_latents, bk_latents = encode(bk_video)
+        with profiling.annotate("pipeline.prepare.pose_guider"):
+            pose_fea = pose_guider(pose_video)
 
     # reference UNet pass (t=0) writes banks; batch 2 = [uncond; cond]
     if st.do_cfg:
@@ -203,8 +256,9 @@ def prepare_conditioning(params: Params, st: Pose2VideoStatic,
         ref_ctx = torch.cat([ctx_uncond, ctx_cond], dim=0)
     else:
         ref_in, ref_ctx = ref_latents, ctx_cond
-    banks = U.unet2d_apply(params["reference_unet"], cfg.reference_unet,
-                           ref_in, 0.0, ref_ctx)
+    with profiling.annotate("pipeline.prepare.reference_unet"):
+        banks = U.unet2d_apply(params["reference_unet"], cfg.reference_unet,
+                               ref_in, 0.0, ref_ctx)
     return {
         "ctx_cond": ctx_cond,
         "ctx_uncond": ctx_uncond,
@@ -465,39 +519,43 @@ def generate_host_loop(params: Params, st: Pose2VideoStatic,
     video (F', H, W, 3) in [0, 1], F' = (F-1)*factor + 1 with
     ``st.interpolation_factor`` >= 2, else F, on every rank. ``clock``, if
     given, is marked at "start", "prepare", "step0".."stepN-1" and
-    "decode"."""
+    "decode". The host's enqueue of each phase runs in a profiler range,
+    ``pipeline.prepare``, ``pipeline.step`` (each step) and
+    ``pipeline.decode``."""
     mark = clock.mark if clock is not None else (lambda name: None)
     mark("start")
-    ddim = DDIM.create(st.cfg.pipeline.scheduler, st.num_inference_steps)
-    win, wts = make_windows(st)
-    counter = torch.as_tensor(_window_counter(st.num_frames, win, wts),
-                              device=noise.device)
-    if st.mode == "frame":
-        # this rank's frames of the latents and the counter
-        block = _frame_block(st, st.num_frames)
-        noise, counter = noise[block], counter[block]
-    cond = prepare_conditioning(params, st, ref_image, pose_video, bk_video,
-                                clip_pixels)
+    with profiling.annotate("pipeline.prepare"):
+        ddim = DDIM.create(st.cfg.pipeline.scheduler, st.num_inference_steps)
+        win, wts = make_windows(st)
+        counter = torch.as_tensor(_window_counter(st.num_frames, win, wts),
+                                  device=noise.device)
+        if st.mode == "frame":
+            # this rank's frames of the latents and the counter
+            block = _frame_block(st, st.num_frames)
+            noise, counter = noise[block], counter[block]
+        cond = prepare_conditioning(params, st, ref_image, pose_video,
+                                    bk_video, clip_pixels)
     mark("prepare")
     latents = noise * ddim.init_noise_sigma
     for i in range(ddim.num_steps):
-        t = float(ddim.timesteps[i])
-        v = _accumulate_step(params["denoising_unet"], st, cond, latents, t,
-                             win, wts, counter)
-        latents = ddim.step_v(v, i, latents)
+        with profiling.annotate("pipeline.step"):
+            t = float(ddim.timesteps[i])
+            v = _accumulate_step(params["denoising_unet"], st, cond, latents,
+                                 t, win, wts, counter)
+            latents = ddim.step_v(v, i, latents)
         mark(f"step{i}")
-    if st.mode == "frame":
-        if st.interpolation_factor < 2:
+    with profiling.annotate("pipeline.decode"):
+        if st.mode == "frame" and st.interpolation_factor < 2:
             # decode this rank's frames as they are, then gather the video
             video = comm.all_gather(decode_frames(params, st, latents),
                                     st.mesh.group(st.frame_axis), axis=0)
-            mark("decode")
-            return video
-        # the interpolation mixes neighbouring frames: gather first
-        latents = comm.all_gather(latents, st.mesh.group(st.frame_axis),
-                                  axis=0)
-    latents = interpolate_latents(latents, st.interpolation_factor,
-                                  st.interpolation_mode)
-    video = _decode_frames(params, st, latents)
+        else:
+            if st.mode == "frame":
+                # the interpolation mixes neighbouring frames: gather first
+                latents = comm.all_gather(
+                    latents, st.mesh.group(st.frame_axis), axis=0)
+            latents = interpolate_latents(latents, st.interpolation_factor,
+                                          st.interpolation_mode)
+            video = _decode_frames(params, st, latents)
     mark("decode")
     return video

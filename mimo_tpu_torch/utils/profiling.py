@@ -8,7 +8,8 @@ sequence of tensors) and synchronises their CUDA device, as
 of ``xla_trace``: a ``torch.profiler`` trace of the CPU and, where there is
 one, the CUDA device, written to a directory as a Chrome trace
 (chrome://tracing, Perfetto or TensorBoard's profiler plugin).
-``annotate`` is ``torch.profiler.record_function``.
+``annotate`` opens a named range on the trace's host timeline; the clip's
+span recorder (``pipelines.pose2vid.PhaseClock``) opens one a span.
 """
 
 from __future__ import annotations
@@ -83,8 +84,13 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named region visible in profiler traces."""
-    return torch.profiler.record_function(name)
+    """Named region on the host's timeline of a profiler trace, recorded
+    only while a profiler runs. It is recorded as an operator is (function
+    scope), not as a ``record_function`` user annotation: CUPTI casts a
+    user annotation's shadow onto the device's timeline, an event of the
+    range's name (before torch 2.13 with nothing to tell it from a kernel)
+    that a sum of device time would count as work."""
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def log_compile_options() -> Dict[str, Any]:

@@ -18,6 +18,7 @@ Tolerances:
   every shot's bbox, and inside the occlusion mask).
 """
 
+import contextlib
 import json
 import types
 
@@ -37,6 +38,7 @@ from mimo_tpu_torch import config as C
 from mimo_tpu_torch.entry import edit as E
 from mimo_tpu_torch.entry import runner as R
 from mimo_tpu_torch.entry import template as T
+from mimo_tpu_torch.pipelines import pose2vid as P2V
 from mimo_tpu_torch.utils import frames as FU
 from tests.test_pipeline import tiny_params
 from tests.test_torch_helpers import bridge_params, set_fp32_matmuls
@@ -189,12 +191,19 @@ def test_pose_adjust_without_cv2_close_to_cv2(h, w, width, height,
 
 
 class StubRunner:
-    """Records generate's inputs; returns a video made from them."""
+    """Records generate's inputs; returns a video made from them. The
+    port's entry opens a clip on its runner (``Runner.clip``; the JAX
+    package's does not) and hands ``generate`` the clip's recorder, which
+    the stub takes apart from the inputs it records."""
 
     def __init__(self):
         self.calls = []
 
-    def generate(self, ref, pose, bk, **kw):
+    @contextlib.contextmanager
+    def clip(self, name):
+        yield P2V.PhaseClock(torch.device("cpu"))
+
+    def generate(self, ref, pose, bk, clock=None, **kw):
         self.calls.append((ref, pose, bk, kw))
         h, w = kw["height"], kw["width"]
         rng = np.random.default_rng(len(pose))

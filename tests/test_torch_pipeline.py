@@ -125,9 +125,15 @@ def test_animate_from_frames_in_memory():
     assert np.isfinite(a).all() and a.min() >= 0.0 and a.max() <= 1.0
     assert a.std() > 1e-3
     np.testing.assert_array_equal(a, b)
-    assert set(runner.last_timings) == {"prepare", "step_mean", "decode",
-                                        "steps"}
-    assert runner.last_timings["steps"] == 2
+    tm = runner.last_timings
+    assert set(tm) == {"prepare", "step_mean", "decode", "steps", "step_ms",
+                       "clip", "spans"}
+    assert tm["steps"] == 2 and len(tm["step_ms"]) == 2
+    assert tm["step_mean"] == pytest.approx(sum(tm["step_ms"]) / 2)
+    assert tm["clip"] == runner.clip_id == 2
+    assert [s["name"] for s in tm["spans"]] == [
+        "entry.animate", "entry.template", "entry.reference", "entry.inputs",
+        "entry.output"]
 
 
 def test_cli_validates_template_before_model_init(tmp_path):
