@@ -62,9 +62,12 @@ Phases, in order; any failure exits non-zero:
    720x1280 template drawn in memory (a figure walking far enough for
    several ROI shots, a textured background, an occlusion patch it passes
    through) at 784x784, CFG 3.5, 3 DDIM steps; prints the shots, the
-   generated frames and windows, the phase times, composite_back's host
-   time, the peak device memory and every kernel's launch count (each must
-   be > 0); checks 48 uint8 720x1280 frames, the occ patch equal to vid
+   generated frames and windows, the phase times, the paste-back's time
+   (``entry.edit.paste_back``, on the card), the clip's copies, the peak
+   device memory and every kernel's launch count (each must be > 0); the
+   card's paste-back against the host's numpy one (``composite_back``) on
+   the same inputs: the largest gap in uint8 levels and the pixels that
+   differ; checks 48 uint8 720x1280 frames, the occ patch equal to vid
    and everything outside the shots' bboxes equal to bk within 1, a pasted
    region that is not constant, and a second run equal in every bit; then
    one 150-frame (the CLI's --max-frames) 1-step run, which must fit the
@@ -1390,13 +1393,17 @@ def phase_edit(runner):
             width=EDIT_SIZE, num_inference_steps=1, guidance_scale=3.5)
         return ctx, bboxes, gen, pose2vid.make_windows(st)[0].shape[0]
 
-    composite_s = []
-    composite_back = ED.composite_back
+    paste_s, pasted_args = [], []
+    paste_back = ED.paste_back
 
-    def timed_composite(*args, **kwargs):
+    def timed_paste(*args, **kwargs):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = composite_back(*args, **kwargs)
-        composite_s.append(time.perf_counter() - t0)
+        out = paste_back(*args, **kwargs)
+        torch.cuda.synchronize()
+        paste_s.append(time.perf_counter() - t0)
+        if not pasted_args:
+            pasted_args.append((args, kwargs, out))
         return out
 
     tpl, occ_patch = edit_template(EDIT_FRAMES, 20)
@@ -1411,7 +1418,7 @@ def phase_edit(runner):
         raise AssertionError("the edit template made one ROI shot")
     counters = reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    ED.composite_back = timed_composite
+    ED.paste_back = timed_paste
     try:
         t0 = time.perf_counter()
         out = ED.edit(runner, ref, tpl, steps=EDIT_STEPS, **kw)
@@ -1420,12 +1427,29 @@ def phase_edit(runner):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         again = ED.edit(runner, ref, tpl, steps=EDIT_STEPS, **kw)
     finally:
-        ED.composite_back = composite_back
+        ED.paste_back = paste_back
     tm = runner.last_timings
     log(f"  edit run 1: {wall:.2f} s wall | prepare {tm['prepare']:.1f} ms | "
         f"mean step {tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms "
-        f"(CUDA events) | composite_back {composite_s[0] * 1e3:.0f} ms "
-        f"(host) | peak device memory {peak:.1f} GiB")
+        f"(CUDA events) | paste_back {paste_s[0] * 1e3:.1f} ms (card, "
+        f"host wall) | copies {tm['h2d_bytes'] / 1e6:.1f} MB up, "
+        f"{tm['d2h_bytes'] / 1e6:.1f} MB back | peak device memory "
+        f"{peak:.1f} GiB")
+    # the card's paste-back against the host's numpy one on the same inputs
+    args, _, card = pasted_args[0]
+    video, p_ctx, p_bboxes, pad_info, bk, vid, occ = args
+    t0 = time.perf_counter()
+    host = ED.composite_back(
+        video.float().cpu().numpy(), p_ctx, p_bboxes, pad_info,
+        list(bk.cpu().numpy()), list(vid.cpu().numpy()),
+        None if occ is None else list(occ.cpu().numpy()[..., None]))
+    host_s = time.perf_counter() - t0
+    gap = np.abs(card.cpu().numpy().astype(int) - np.stack(host).astype(int))
+    log(f"  paste-back, card against host numpy (composite_back, "
+        f"{host_s * 1e3:.0f} ms): largest gap {int(gap.max())} uint8 "
+        f"levels, {int(gap.any(-1).sum())} of {gap[..., 0].size} pixels "
+        f"differ")
+    del pasted_args, video, bk, vid, occ, card
     log(f"  kernel launches in edit run 1: {launches}")
     for name, count in launches.items():
         if count <= 0:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,22 +46,33 @@ def animate(runner: Runner, ref_img: np.ndarray,
                 pose_frames = list(template)[:max_frames]
             if not pose_frames:
                 raise ValueError("template has no pose frames")
-            h, w = pose_frames[0].shape[:2]
-            bk_frames = FU.init_bk(len(pose_frames), h, w)
-            pose_frames, bk_frames, _ = FU.crop_human(pose_frames, bk_frames)
-            padded_pose = [FU.pad_img(p, (0, 0, 0))[0] for p in pose_frames]
-            padded_bk = [FU.pad_img(b, (255, 255, 255))[0] for b in bk_frames]
-            # the crops are views of the full-size frames: freeing those
-            # takes milliseconds, which belong to this span
-            del pose_frames, bk_frames
+            pose, bk = crop_template(runner, pose_frames, clock)
         with clock.span("entry.reference"):
             ref = prep_reference_image(ref_img)
 
-        return runner.generate(ref, padded_pose, padded_bk, width=width,
-                               height=height, steps=steps,
-                               cfg_scale=cfg_scale, seed=seed,
-                               interpolation_factor=interpolation_factor,
-                               clock=clock)
+        job = runner.inputs(ref, pose, bk, width=width, height=height,
+                            steps=steps, cfg_scale=cfg_scale, seed=seed,
+                            interpolation_factor=interpolation_factor,
+                            clock=clock)
+        # the template's frames leave the device before the pipeline
+        del pose, bk
+        return runner.to_host(runner.run(job, clock), clock)
+
+
+def crop_template(runner: Runner, pose_frames: Sequence[np.ndarray],
+                  clock) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The human crop of the sdc frames on the runner's device: uploaded
+    once as uint8, boxed (``FU.sdc_rects``), cropped to the union box
+    (``FU.union_box``) and padded black to a 16-multiple square; and the
+    white background at the padded size, which is what ``FU.init_bk`` ->
+    crop -> ``FU.pad_img`` makes. Returns the (F, S, S, 3) uint8 pose and
+    background."""
+    sdc = runner.upload(pose_frames, clock)
+    rects = FU.sdc_rects(sdc, clock=clock)
+    shape = sdc.shape[1:3]
+    x, x_max, y, y_max = FU.union_box(FU.sdc_box(r, shape) for r in rects)
+    pose, _ = FU.pad_frames(sdc[:, y:y_max, x:x_max], (0, 0, 0))
+    return pose, torch.full_like(pose, 255)
 
 
 def main(argv=None):

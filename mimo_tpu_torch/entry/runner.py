@@ -2,16 +2,18 @@
 
 Counterpart of ``mimo_tpu/entry/runner.py``: ``init_random_params``,
 ``load_params``, ``prep_reference_image`` and ``Runner.generate``. The
-host prepares fixed-size batches once; the device runs
-``pipelines.pose2vid.generate_host_loop``. ``Runner.clip`` opens a clip's
-span recorder (``pose2vid.PhaseClock``) for an entry call.
+frames go to the device once as uint8 and are resized and normalised there
+(``Runner.inputs``); the device runs ``pipelines.pose2vid.generate_host_loop``
+(``Runner.run``). ``Runner.clip`` opens a clip's span recorder
+(``pose2vid.PhaseClock``) for an entry call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +26,9 @@ from mimo_tpu_torch.models import vae as V
 from mimo_tpu_torch.pipelines import pose2vid
 from mimo_tpu_torch.utils import frames as FU
 from mimo_tpu_torch.weights import bridge
+
+# a generation's static description and its device inputs (Runner.inputs)
+Job = Tuple[pose2vid.Pose2VideoStatic, Tuple[torch.Tensor, ...]]
 
 
 def init_random_params(cfg: MIMOConfig, generator: torch.Generator,
@@ -80,7 +85,8 @@ class Runner:
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
     # the last clip's record (PhaseClock.timings): prepare, step_mean,
-    # decode and step_ms (device, ms), steps, clip and spans (host)
+    # decode and step_ms (device, ms), steps, clip and spans (host),
+    # h2d_bytes and d2h_bytes (the clip's copies between host and device)
     last_timings: Dict[str, Any] = field(default_factory=dict)
     # the id of the last clip begun; every span of a clip carries it
     clip_id: int = 0
@@ -106,65 +112,105 @@ class Runner:
             yield clock
         self.last_timings = clock.timings()
 
-    def generate(self, ref_image: np.ndarray, pose_frames: List[np.ndarray],
-                 bk_frames: List[np.ndarray], *, width: int, height: int,
-                 steps: int, cfg_scale: float, seed: int,
-                 window_chunk: Optional[int] = None,
-                 interpolation_factor: int = 0,
-                 clock: Optional[pose2vid.PhaseClock] = None) -> np.ndarray:
-        """ref_image: (h, w, 3) uint8 prepared reference; pose/bk frames:
-        uint8 lists of any size (resized here). Returns
-        (F', height, width, 3) float32 in [0, 1]: F' = F, or
-        (F-1)*interpolation_factor + 1 when the factor is >= 2.
+    def upload(self, frames: Sequence[np.ndarray],
+               clock: pose2vid.PhaseClock) -> torch.Tensor:
+        """Host frames of one shape as one uint8 (F, ...) tensor on the
+        device (``FU.upload_frames``), counted in ``clock``."""
+        out = FU.upload_frames(frames, self.device)
+        clock.copied("h2d", out.nbytes)
+        return out
 
-        ``clock``: the clip's recorder, whose caller sets ``last_timings``
-        (``Runner.clip``); without one the generation is a clip of its own
-        and sets it here. The host's work runs in the spans
-        ``entry.inputs`` (resizes, normalisation, the noise draw, the
-        copies to the device) and ``entry.output`` (the copy back, after
-        the one wait for the decode)."""
-        own = clock is None
-        clock = clock or self.clock()
-        num_frames = len(pose_frames)
+    def _batches(self, frames, clock) -> List[torch.Tensor]:
+        """Frames as uint8 batches of one size each on the device: an
+        (F, H, W, 3) tensor on it, a list of such tensors (e.g. one a
+        shot), or host (H, W, 3) frames, each run of one size uploaded
+        once."""
+        if torch.is_tensor(frames):
+            return [frames]
+        if torch.is_tensor(frames[0]):
+            return list(frames)
+        return [self.upload(list(run), clock)
+                for _, run in itertools.groupby(frames, key=np.shape)]
+
+    def inputs(self, ref_image: np.ndarray, pose_frames, bk_frames, *,
+               width: int, height: int, steps: int, cfg_scale: float,
+               seed: int, window_chunk: Optional[int] = None,
+               interpolation_factor: int = 0,
+               clock: pose2vid.PhaseClock) -> Job:
+        """A generation's device inputs, in the span ``entry.inputs``: the
+        frames' uploads (host frames), the resizes to (height, width) and
+        the normalisation on the device, the CLIP preprocess and the noise
+        draw. ref_image: (h, w, 3) uint8 prepared reference; pose / bk
+        frames: uint8 of any size, as ``_batches`` takes them. The caller
+        may drop its frames before ``run``: nothing here keeps them."""
         dev, dt = self.device, self.dtype
-
-        def tensor(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
-
         with clock.span("entry.inputs"):
-            # the clip's full-size float arrays live on the host only here:
-            # freeing them takes milliseconds, which belong to this span
-            ref = FU.resize_frame(ref_image, width, height)
-            ref = tensor((ref.astype(np.float32) / 255.0) * 2.0 - 1.0)
-            pose = tensor(np.stack([FU.resize_frame(f, width, height)
-                                    for f in pose_frames]).astype(np.float32)
-                          / 255.0)
-            bk = tensor((np.stack([FU.resize_frame(f, width, height)
-                                   for f in bk_frames]).astype(np.float32)
-                         / 255.0) * 2.0 - 1.0)
+            ref_u8 = self.upload([ref_image], clock)
+            ref = (FU.to_unit(FU.resize_frames(ref_u8, width, height))[0]
+                   * 2.0 - 1.0).to(dt)
+
+            def video(frames):
+                return FU.to_unit(torch.cat([
+                    FU.resize_frames(b, width, height)
+                    for b in self._batches(frames, clock)]))
+
+            pose = video(pose_frames).to(dt)
+            bk = (video(bk_frames) * 2.0 - 1.0).to(dt)
             cs = self.cfg.clip_vision.image_size
-            clip_in = (FU.resize_frame(ref_image, cs, cs).astype(np.float32)
-                       / 255.0)
-            clip_px = CV.clip_preprocess(torch.from_numpy(clip_in))
+            clip_px = CV.clip_preprocess(
+                FU.to_unit(FU.resize_frames(ref_u8, cs, cs))[0]).to(dt)
 
             ds = self.cfg.vae.downscale
             gen = torch.Generator(device=dev).manual_seed(seed)
-            noise = torch.randn((num_frames, height // ds, width // ds, 4),
+            noise = torch.randn((pose.shape[0], height // ds, width // ds, 4),
                                 generator=gen, device=dev)
 
             st = pose2vid.Pose2VideoStatic(
-                cfg=self.cfg, num_frames=num_frames, height=height,
+                cfg=self.cfg, num_frames=pose.shape[0], height=height,
                 width=width, num_inference_steps=steps,
                 guidance_scale=cfg_scale, window_chunk=window_chunk,
                 pad_windows_to=self.pad_windows_to, mesh_axis=self.mesh_axis,
                 frame_axis=self.frame_axis, mesh=self.mesh,
                 interpolation_factor=interpolation_factor)
-            inputs = (ref, pose, bk, clip_px.to(dev, dt), noise.to(dt))
-        out = pose2vid.generate_host_loop(self.params, st, *inputs,
-                                          clock=clock)
+            return st, (ref, pose, bk, clip_px, noise.to(dt))
+
+    def run(self, job: Job, clock: pose2vid.PhaseClock) -> torch.Tensor:
+        """The pipeline (``generate_host_loop``) on ``inputs``' job: the
+        (F', height, width, 3) video in [0, 1] on the device."""
+        st, tensors = job
+        return pose2vid.generate_host_loop(self.params, st, *tensors,
+                                           clock=clock)
+
+    def to_host(self, video: torch.Tensor,
+                clock: pose2vid.PhaseClock) -> np.ndarray:
+        """The video as host float32, in the span ``entry.output`` after
+        the one wait for the decode."""
         clock.durations_ms()
         with clock.span("entry.output"):
-            video = out.float().cpu().numpy()
+            out = video.float().cpu().numpy()
+        clock.copied("d2h", out.nbytes)
+        return out
+
+    def generate(self, ref_image: np.ndarray, pose_frames, bk_frames, *,
+                 width: int, height: int, steps: int, cfg_scale: float,
+                 seed: int, window_chunk: Optional[int] = None,
+                 interpolation_factor: int = 0,
+                 clock: Optional[pose2vid.PhaseClock] = None) -> np.ndarray:
+        """``inputs``, ``run`` and ``to_host`` in one call. Returns
+        (F', height, width, 3) float32 in [0, 1]: F' = F, or
+        (F-1)*interpolation_factor + 1 when the factor is >= 2.
+
+        ``clock``: the clip's recorder, whose caller sets ``last_timings``
+        (``Runner.clip``); without one the generation is a clip of its own
+        and sets it here."""
+        own = clock is None
+        clock = clock or self.clock()
+        job = self.inputs(ref_image, pose_frames, bk_frames, width=width,
+                          height=height, steps=steps, cfg_scale=cfg_scale,
+                          seed=seed, window_chunk=window_chunk,
+                          interpolation_factor=interpolation_factor,
+                          clock=clock)
+        video = self.to_host(self.run(job, clock), clock)
         if own:
             self.last_timings = clock.timings()
         return video

@@ -113,7 +113,11 @@ class PhaseClock:
     work by it, and records ``{"name", "parent", "clip", "start", "end"}``
     in ``spans``: the enclosing span's name (None for the root), the clip's
     id and the host clock in ms from the clock's creation. A span never
-    synchronises."""
+    synchronises.
+
+    Copies: ``copied(direction, nbytes)`` counts the bytes the clip's host
+    arrays put on the device ("h2d") and its device tensors brought back as
+    host arrays ("d2h")."""
 
     def __init__(self, device: torch.device, clip: int = 0):
         self.cuda = torch.device(device).type == "cuda"
@@ -123,6 +127,10 @@ class PhaseClock:
         self._open: List[str] = []
         self._t0 = time.perf_counter()
         self._durations: Optional[Dict[str, float]] = None
+        self.bytes = {"h2d": 0, "d2h": 0}
+
+    def copied(self, direction: str, nbytes: int) -> None:
+        self.bytes[direction] += int(nbytes)
 
     def mark(self, name: str) -> None:
         self._durations = None
@@ -163,14 +171,17 @@ class PhaseClock:
         """The clip's record, as ``Runner.last_timings`` holds it, from the
         marks of ``generate_host_loop``: ``prepare``, ``step_mean``,
         ``decode`` and ``step_ms`` (each step) in ms on the device's
-        timeline, ``steps``, ``clip`` and ``spans`` (host)."""
+        timeline, ``steps``, ``clip``, ``spans`` (host), and ``h2d_bytes``
+        / ``d2h_bytes`` (``copied``)."""
         ms = self.durations_ms()
         step_ms = [v for k, v in ms.items() if k.startswith("step")]
         return {"prepare": ms["prepare"],
                 "step_mean": sum(step_ms) / len(step_ms),
                 "decode": ms["decode"], "steps": len(step_ms),
                 "step_ms": step_ms, "clip": self.clip,
-                "spans": [dict(s) for s in self.spans]}
+                "spans": [dict(s) for s in self.spans],
+                "h2d_bytes": self.bytes["h2d"],
+                "d2h_bytes": self.bytes["d2h"]}
 
 
 def chunked_apply(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:

@@ -101,6 +101,8 @@ def _clip(name):
     if name == "shot_split":
         return ([_sdc_frame(128, 128, 4, 60, 4, 40) for _ in range(5)]
                 + [_sdc_frame(128, 128, 70, 124, 80, 124) for _ in range(5)])
+    if name == "empty":      # no mask: the shot's whole-frame fallback
+        return [np.zeros((40, 56, 3), np.uint8) for _ in range(5)]
     return _edit_template().sdc
 
 
@@ -117,7 +119,7 @@ def _assert_same(got, want):
         assert got == want
 
 
-@pytest.mark.parametrize("name", ["static", "shot_split", "edit"])
+@pytest.mark.parametrize("name", ["static", "shot_split", "edit", "empty"])
 @pytest.mark.parametrize("overlay", [2, 4])
 def test_roi_shots_equal_original(name, overlay):
     frames = _clip(name)
@@ -126,7 +128,7 @@ def test_roi_shots_equal_original(name, overlay):
     got = FU.crop_human_clip_auto_context(frames, vid, bk, overlay)
     want = JFU.crop_human_clip_auto_context(frames, vid, bk, overlay)
     _assert_same(got, want)
-    if name != "static":
+    if name in ("shot_split", "edit"):
         assert len(got[4]) >= 2        # the clip splits into shots
 
 
@@ -193,8 +195,13 @@ def test_pose_adjust_without_cv2_close_to_cv2(h, w, width, height,
 class StubRunner:
     """Records generate's inputs; returns a video made from them. The
     port's entry opens a clip on its runner (``Runner.clip``; the JAX
-    package's does not) and hands ``generate`` the clip's recorder, which
-    the stub takes apart from the inputs it records."""
+    package's does not), uploads its frames (``Runner.upload``) and hands
+    ``inputs`` the clip's recorder, which the stub takes apart from the
+    inputs it records; the port's frames, uint8 tensors a shot, are
+    recorded as the numpy frames the JAX package's generate receives."""
+
+    device = torch.device("cpu")
+    upload = R.Runner.upload
 
     def __init__(self):
         self.calls = []
@@ -203,13 +210,30 @@ class StubRunner:
     def clip(self, name):
         yield P2V.PhaseClock(torch.device("cpu"))
 
-    def generate(self, ref, pose, bk, clock=None, **kw):
+    def inputs(self, ref, pose, bk, clock=None, **kw):
+        def frames(x):
+            if torch.is_tensor(x):
+                x = [x]
+            if isinstance(x, list) and x and torch.is_tensor(x[0]):
+                return [f for b in x for f in b.numpy()]
+            return x
+        pose, bk = frames(pose), frames(bk)
         self.calls.append((ref, pose, bk, kw))
+        return pose, kw
+
+    def run(self, job, clock=None):
+        pose, kw = job
         h, w = kw["height"], kw["width"]
         rng = np.random.default_rng(len(pose))
         video = rng.uniform(0, 1, (len(pose), h, w, 3)).astype(np.float32)
-        return video * 0.5 + np.stack([
-            np.resize(p.astype(np.float32) / 510, (h, w, 3)) for p in pose])
+        return torch.from_numpy(video * 0.5 + np.stack([
+            np.resize(p.astype(np.float32) / 510, (h, w, 3)) for p in pose]))
+
+    def to_host(self, video, clock=None):
+        return video.numpy()
+
+    def generate(self, ref, pose, bk, clock=None, **kw):
+        return self.run(self.inputs(ref, pose, bk, **kw)).numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -127,7 +127,7 @@ def test_animate_from_frames_in_memory():
     np.testing.assert_array_equal(a, b)
     tm = runner.last_timings
     assert set(tm) == {"prepare", "step_mean", "decode", "steps", "step_ms",
-                       "clip", "spans"}
+                       "clip", "spans", "h2d_bytes", "d2h_bytes"}
     assert tm["steps"] == 2 and len(tm["step_ms"]) == 2
     assert tm["step_mean"] == pytest.approx(sum(tm["step_ms"]) / 2)
     assert tm["clip"] == runner.clip_id == 2

@@ -21,12 +21,12 @@ STEPS = 2
 HOST = {"animate": ["entry.template", "entry.reference", "entry.inputs",
                     "entry.output"],
         "edit": ["entry.template", "entry.reference", "entry.inputs",
-                 "entry.output", "entry.paste_back"]}
+                 "entry.paste_back"]}
 RANGES = ["pipeline.prepare", "pipeline.prepare.clip",
           "pipeline.prepare.vae_encode", "pipeline.prepare.pose_guider",
           "pipeline.prepare.reference_unet", "pipeline.step",
           "pipeline.decode"]
-NEW_KEYS = {"step_ms", "clip", "spans"}
+NEW_KEYS = {"step_ms", "clip", "spans", "h2d_bytes", "d2h_bytes"}
 OLD_KEYS = {"prepare", "step_mean", "decode", "steps"}
 
 
