@@ -78,7 +78,10 @@ Phases, in order; any failure exits non-zero:
    encoding, the memory attention and the mask decoder, each call taken
    again on the CPU from the card call's own inputs, and one Hiera-L
    global block's d = 72 flash attention against the fp32 plain attention
-   on its own q, k, v, which sees a x1.25 softmax scale), then the
+   on its own q, k, v, which sees a x1.25 softmax scale; that check runs
+   the eager frame loop), the full-width tracker's frame loop as CUDA
+   graphs against its eager loop (two clips, each from a keyframe in its
+   middle and again on its cached encode: equal bits), then the
    decomposition half's track stage at full width through
    ``mimo_tpu_torch.tools.profile_decomp`` (SAM ViT-H, SAM2 Hiera-L and
    ViTPose-H, seeded random bf16 weights) on a 48-frame 720x480 clip drawn
@@ -1592,6 +1595,9 @@ def decomp_agreement_error(seed: int, fault=None):
             contextlib.ExitStack() as stack:
         for name in DECOMP_MODULES:
             stack.enter_context(patched(S2, name, recorder(name)))
+        # the eager frame loop: a captured frame's recorded output would be
+        # the CUDA graph's buffer, not what that call computed
+        stack.enter_context(patched(S2, "_use_graph", lambda device: False))
         stack.enter_context(patched(AT, "flash_attention_nt",
                                     recording(AT.flash_attention_nt)))
         pred = S2.SAM2VideoPredictor(cuda_params, cfg)
@@ -1681,6 +1687,57 @@ def small_decomp_agreement() -> None:
                              f"reference in {bad}")
 
 
+def track_graph_agreement() -> None:
+    """The frame loop as the card runs it, one CUDA graph a shape of the
+    memory bank (``decomp/sam2.py::_FrameGraph``), against the same
+    tracker's eager loop at full width (SAM2 Hiera-L, seeded random bf16
+    weights) on two 48-frame 720x480 clips, the second the first mirrored:
+    each tracked from a keyframe in its middle (both directions, the
+    reverse one replaying graphs captured forwards), then from another
+    keyframe on its cached encode, as the occlusion stage calls
+    ``track_video``. Every mask and every frame's picked logits must be
+    equal in every bit."""
+    from mimo_tpu_torch.decomp import factory as FA
+    from mimo_tpu_torch.decomp import sam2 as S2
+    from mimo_tpu_torch.tools import profile_decomp as PD
+    dev = torch.device("cuda")
+    cfg = FA.configs(tiny=False)[FA.BUNDLES.index("sam2")]
+    params = object_everywhere(FA.load_params(None, "sam2", cfg, dev,
+                                              torch.bfloat16, 0))
+    frames, masks, _ = PD.synth_frames(*PD.CLIP)
+    clips = [(frames, masks),
+             ([np.ascontiguousarray(f[:, ::-1]) for f in frames],
+              np.ascontiguousarray(masks[:, :, ::-1]))]
+    t = PD.CLIP[0]
+    calls = [(c, kf) for c in range(len(clips)) for kf in (t // 2, t // 5)]
+    runs = {}
+    for mode, use in (("graphed", S2._use_graph),
+                      ("eager", lambda device: False)):
+        with patched(S2, "_use_graph", use):
+            models = FA.build_decomp_models(params={"sam2": params},
+                                            only={"sam2"}, device=dev)
+            track = models.track_video
+            t0 = time.perf_counter()
+            runs[mode] = []
+            for c, kf in calls:
+                fr, m = clips[c]
+                out = track(fr, m[kf], kf)
+                runs[mode].append((out, track.last_record.picked().cpu()))
+            log(f"  track {mode}: {len(calls)} calls (clip, keyframe) "
+                f"{calls} in {time.perf_counter() - t0:.2f} s, "
+                f"{len(track.tracker._graphs)} frame graphs")
+            del models, track
+            torch.cuda.empty_cache()
+    bad = [calls[i] for i, ((a, pa), (b, pb)) in enumerate(
+        zip(runs["graphed"], runs["eager"]))
+        if not (np.array_equal(a, b) and torch.equal(pa, pb))]
+    log(f"  track graphed vs eager: {len(calls) - len(bad)} of {len(calls)} "
+        f"calls equal in every bit (masks and picked logits)")
+    if bad:
+        raise AssertionError(f"the graphed frame loop differs from the "
+                             f"eager one in calls {bad}")
+
+
 def phase_decomp():
     """The decomposition half's track stage at full width through
     tools/profile_decomp.py: SAM ViT-H, SAM2 Hiera-L and ViTPose-H in bf16
@@ -1689,6 +1746,7 @@ def phase_decomp():
     must give equal bits. Returns the timed run's launch counts."""
     log("== phase 7: decomp track")
     small_decomp_agreement()
+    track_graph_agreement()
     from mimo_tpu_torch.decomp import factory as FA
     from mimo_tpu_torch.decomp import sam2 as S2
     from mimo_tpu_torch.ops import flash_attention as FAK

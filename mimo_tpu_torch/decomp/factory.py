@@ -38,7 +38,8 @@ The SAM2 video encode is cached between ``track_video`` calls on one clip
 (the occlusion stage tracks every occluder seed through the same frames);
 the cache key is an explicit clip id or a digest of every frame's bytes,
 where the JAX package keyed on ``id()`` and the first and last frames
-(fault R3).
+(fault R3). ``track_video`` (``TrackVideo``) keeps its last call's record:
+spans, device phases, the tracker's decisions and counters.
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ from mimo_tpu_torch.decomp import smpl as SM
 from mimo_tpu_torch.decomp import vitpose as VP
 from mimo_tpu_torch.decomp.detector import PoseScoredDetector
 from mimo_tpu_torch.parallel.decomp import frame_parallel
+from mimo_tpu_torch.pipelines.pose2vid import PhaseClock
+from mimo_tpu_torch.utils import profiling
 from mimo_tpu_torch.weights import bridge
 
 BUNDLES = ("sam", "sam2", "vitpose", "hmr", "hamer", "raft", "propainter",
@@ -90,6 +93,59 @@ def clip_key(frames: Sequence[np.ndarray]) -> str:
         h.update(repr((f.shape, f.dtype.str)).encode())
         h.update(f.data)
     return h.hexdigest()
+
+
+class TrackVideo:
+    """``DecompModels.track_video``: SAM2 tracks a seed mask through a
+    clip, prompted with ``PROMPT_POINTS`` points of the mask
+    (``sample_mask_points``, seed 0) on ``seed_frame``, forwards and
+    backwards, the two directions' masks OR-merged. The clip's encode is
+    cached between calls on one clip (the key: an explicit ``clip_id`` or
+    ``clip_key``'s digest of every frame).
+
+    Each call is one clip of its own recorder (``SAM2.TrackRecord`` over a
+    ``PhaseClock``; ``last_record`` keeps the last call's, as
+    ``Runner.last_timings`` keeps a generation's): host spans
+    ``track.key`` (the digest) and, from the predictor, ``track.masks``;
+    device phases from the marks "start", "encode" (``init_state`` in the
+    range ``track.encode``), "prompt" (the points and ``add_new_points`` in
+    the range ``track.prompt``) and one a propagated frame (``track.frame``).
+    """
+
+    PROMPT_POINTS = 5
+
+    def __init__(self, tracker: SAM2.SAM2VideoPredictor):
+        self.tracker = tracker
+        self.cached: Optional[str] = None
+        self.clip_id = 0
+        self.last_record: Optional[SAM2.TrackRecord] = None
+
+    def __call__(self, frames, seed_mask, seed_frame, clip_id=None):
+        self.clip_id += 1
+        rec = SAM2.TrackRecord(PhaseClock(self.tracker.device,
+                                          clip=self.clip_id))
+        clock = rec.clock
+        self.tracker.record = rec
+        try:
+            with clock.span("track.key"):
+                key = clip_id if clip_id is not None else clip_key(frames)
+            clock.mark("start")
+            if self.cached != key:
+                with profiling.annotate("track.encode"):
+                    self.tracker.init_state(list(frames))
+                self.cached = key
+                clock.mark("encode")
+            with profiling.annotate("track.prompt"):
+                pts = sample_mask_points(seed_mask, n=self.PROMPT_POINTS)
+                self.tracker.add_new_points(seed_frame, pts,
+                                            np.ones(len(pts), np.int32))
+            clock.mark("prompt")
+            masks = self.tracker.propagate_in_video(reverse=False) \
+                | self.tracker.propagate_in_video(reverse=True)
+        finally:
+            self.tracker.record = None
+        self.last_record = rec
+        return masks
 
 
 def configs(tiny: bool):
@@ -179,21 +235,8 @@ def build_decomp_models(weights_dir: Optional[str] = None,
             predictor, frame, points_per_side=32)
 
     if params.get("sam2") is not None:
-        tracker = SAM2.SAM2VideoPredictor(params["sam2"], sam2_cfg)
-        cached = [None]
-
-        def track(frames, seed_mask, seed_frame, clip_id=None):
-            key = clip_id if clip_id is not None else clip_key(frames)
-            if cached[0] != key:
-                tracker.init_state(list(frames))
-                cached[0] = key
-            pts = sample_mask_points(seed_mask, n=5)
-            tracker.add_new_points(seed_frame, pts,
-                                   np.ones(len(pts), np.int32))
-            return tracker.propagate_in_video(reverse=False) \
-                | tracker.propagate_in_video(reverse=True)
-
-        models.track_video = track
+        models.track_video = TrackVideo(
+            SAM2.SAM2VideoPredictor(params["sam2"], sam2_cfg))
 
     if params.get("vitpose") is not None:
         def hm_fn(p, crops):

@@ -26,7 +26,11 @@ through ``sam.twoway_transformer`` (4096 image tokens at 1024^2, 7 tokens,
 The TPU workarounds are gone, their outputs kept: ``init_state`` encodes in
 chunks only to bound memory, without padding a chunk to one static shape;
 the propagation is a plain loop over the real frames (no padded scan
-steps) that keeps the last 6 memories and 15 pointers. Attending to the
+steps) that keeps the last 6 memories and 15 pointers. On the card each
+frame replays a CUDA graph of its bank's shape (``_FrameGraph``), and
+nothing in the encode or the loop reads a device value on the host. A
+``TrackRecord`` keeps a call's decisions, its phases and spans, and its
+counters. Attending to the
 valid memory slots only is what the JAX ring buffers with -inf bias on the
 empty slots compute. A memory of age a (frames since it was written) gets
 the temporal embedding ``maskmem_tpos_enc[a - 1]``, the conditioning frame
@@ -52,7 +56,8 @@ from mimo_tpu_torch.decomp.sam import (embed_points, mlp3, mlp3_init,
 from mimo_tpu_torch.decomp.vit import _normal, attention_heads, gelu
 from mimo_tpu_torch.decomp.vitpose import deconv2d, deconv_init
 from mimo_tpu_torch.models import layers as L
-from mimo_tpu_torch.utils.frames import resize_linear
+from mimo_tpu_torch.utils import frames as FU
+from mimo_tpu_torch.utils import profiling
 
 Params = Dict[str, Any]
 
@@ -365,11 +370,16 @@ def _stability_scores(mask_logits: torch.Tensor,
 def forward_sam_heads(p: Params, cfg: SAM2Config, feat: torch.Tensor,
                       feat_s0: torch.Tensor, feat_s1: torch.Tensor,
                       sparse: Optional[torch.Tensor],
-                      multimask_output: bool):
+                      multimask_output: bool,
+                      decided: Optional[Dict[str, torch.Tensor]] = None):
     """Decoder + mask choice (multimask: best IoU; single: the single mask
     if stable, else the best multimask) + object-score gating + object
     pointer. Returns (low_res (4g, 4g) fp32, high_res (16g, 16g) fp32,
-    obj_ptr (d,), object logit)."""
+    obj_ptr (d,), object logit). ``decided``, if given, takes the call's
+    decisions as device tensors: ``best`` (the best multimask's index
+    among the three), ``stable`` (single output only), ``obj`` (the object
+    logit, the gate open where > 0) and ``picked`` (the chosen mask's
+    fp32 logits before the gate)."""
     if sparse is None:      # an empty point with label -1
         sparse = encode_points(
             p, cfg, torch.zeros((1, 1, 2), device=feat.device),
@@ -378,16 +388,25 @@ def forward_sam_heads(p: Params, cfg: SAM2Config, feat: torch.Tensor,
         p, cfg, feat, sparse, feat_s0, feat_s1)
     is_obj = obj_logits[0, 0] > 0
     best = torch.argmax(ious[0, 1:])
+    # the best multimask by a device-side index: indexing with the tensor
+    # would read it on the host, waiting for the device every frame
+    pick = (1 + best).reshape(1)
+    best_mask = masks[0].index_select(0, pick)[0]
     if multimask_output:
-        low_res = masks[0, 1 + best]
-        sam_token = mask_tokens_out[0, 1 + best]
+        low_res = best_mask
+        sam_token = mask_tokens_out[0].index_select(0, pick)[0]
     else:
         stable = _stability_scores(masks[0, 0], cfg.stability_delta) \
             >= cfg.stability_thresh
-        low_res = torch.where(stable, masks[0, 0], masks[0, 1 + best])
+        low_res = torch.where(stable, masks[0, 0], best_mask)
         sam_token = mask_tokens_out[0, 0]
-    low_res = torch.where(is_obj, low_res.float(),
-                          torch.full_like(low_res.float(), NO_OBJ_SCORE))
+        if decided is not None:
+            decided["stable"] = stable
+    picked = low_res.float()
+    if decided is not None:
+        decided.update(best=best, obj=obj_logits[0, 0], picked=picked)
+    low_res = torch.where(is_obj, picked,
+                          torch.full_like(picked, NO_OBJ_SCORE))
     s = cfg.image_size
     high_res = resize_logits(low_res, s, s)
     lam = is_obj.float()
@@ -408,8 +427,18 @@ def encode_frames(p: Params, cfg: SAM2Config, frames: torch.Tensor):
                           hiera_apply(p["trunk"], cfg.hiera, frames))
     s0 = L.conv2d(p["decoder"]["conv_s0"], fpn[0], padding=0)
     s1 = L.conv2d(p["decoder"]["conv_s1"], fpn[1], padding=0)
-    return fpn[2], s1, s0, torch.from_numpy(pos[2]).to(fpn[2].device,
-                                                        fpn[2].dtype)
+    g = fpn[2].shape[1]
+    return fpn[2], s1, s0, sine_on(g, pos[2].shape[-1], str(fpn[2].device),
+                                   fpn[2].dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def sine_on(g: int, dim: int, device: str, dtype: torch.dtype):
+    """``sine_pos_embed(g, g, dim)`` on the device, copied there once: a
+    copy from the host waits for the device's queue, which inside a clip's
+    encode or frame loop would idle the device. Callers must not modify
+    it."""
+    return torch.from_numpy(sine_pos_embed(g, g, dim)).to(device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -420,10 +449,176 @@ IMG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMG_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
+class TrackRecord:
+    """What one tracking call did, read after the call: the clip's phases
+    and host spans (``clock``, a ``pipelines.pose2vid.PhaseClock``, which
+    the caller marks at "start", "encode" and "prompt"; the predictor marks
+    "frame<i>" after each propagated frame and opens a ``track.masks`` span
+    a direction), the prompt frame's decisions (``forward_sam_heads``'s
+    ``decided``, with its binarised 16g x 16g mask), each direction's
+    frames as ``propagate_logits`` stacked them (the picked candidate's
+    low-res logits before the object gate, and a frame's best index and
+    object logit), and the counters of each propagated frame: memory slots,
+    keys of a cross-attention and pointer tokens. Recording never
+    synchronises and copies nothing on the device; the last call's record
+    holds its stacked logits until the next call."""
+
+    def __init__(self, clock):
+        self.clock = clock
+        self.prompt: Dict[str, Any] = {}
+        self.frames: List[int] = []             # traversal order
+        self.picks: List[torch.Tensor] = []     # (n, 4g, 4g) a direction
+        self.decided: List[torch.Tensor] = []   # (n, 2): best, object logit
+        self.slots: List[int] = []
+        self.keys: List[int] = []
+        self.ptr_tokens: List[int] = []
+
+    def add_frame(self, slots: int, keys: int, ptr_tokens: int) -> None:
+        self.slots.append(slots)
+        self.keys.append(keys)
+        self.ptr_tokens.append(ptr_tokens)
+        self.clock.mark(f"frame{len(self.slots) - 1}")
+
+    def add_direction(self, order: List[int], picked: torch.Tensor,
+                      decided: torch.Tensor) -> None:
+        self.frames += order
+        self.picks.append(picked)
+        self.decided.append(decided)
+
+    def picked(self) -> torch.Tensor:
+        """(n, 4g, 4g) fp32 logits of the picked candidate before the gate,
+        of the prompt frame and every propagated one in frame order, on the
+        device."""
+        rows = torch.cat([self.prompt["picked"][None]] + self.picks)
+        return rows[np.argsort([self.prompt["frame"]] + self.frames,
+                               kind="stable")]
+
+    def decisions(self) -> Dict[str, Any]:
+        """The decisions as host values: the prompt frame's index,
+        ``stable`` (None for a multimask prompt), ``best``, object logit
+        and mask; each propagated frame's index, ``best`` and object logit,
+        in traversal order."""
+        pr = self.prompt
+        frames = {"best": np.zeros(0, np.int64), "obj": np.zeros(0,
+                                                                 np.float32)}
+        if self.decided:
+            d = torch.cat(self.decided).cpu().numpy()
+            frames = {"best": d[:, 0].astype(np.int64), "obj": d[:, 1]}
+        return {"prompt_frame": pr["frame"],
+                "prompt_stable": (bool(pr["stable"]) if "stable" in pr
+                                  else None),
+                "prompt_best": int(pr["best"]),
+                "prompt_obj": float(pr["obj"]),
+                "prompt_mask": pr["mask"].cpu().numpy(),
+                "frames": np.asarray(self.frames, np.int64), **frames}
+
+    def timings(self) -> Dict[str, Any]:
+        """The call's record: ``encode`` (None where the encode was
+        cached), ``prompt`` and each propagated frame's ``frame_ms`` on the
+        device's timeline (ms), their mean, ``frames`` (propagated), the
+        mean ``slots``, ``keys`` and ``ptr_tokens`` a frame attended,
+        ``clip``, ``spans`` (host) and ``h2d_bytes`` / ``d2h_bytes``."""
+        ms = self.clock.durations_ms()
+        frame_ms = [v for k, v in ms.items() if k.startswith("frame")]
+
+        def mean(xs):
+            return sum(xs) / len(xs) if xs else None
+
+        return {"encode": ms.get("encode"), "prompt": ms["prompt"],
+                "frame_ms": frame_ms, "frame_mean": mean(frame_ms),
+                "frames": len(frame_ms), "slots": mean(self.slots),
+                "keys": mean(self.keys), "ptr_tokens": mean(self.ptr_tokens),
+                "clip": self.clock.clip,
+                "spans": [dict(s) for s in self.clock.spans],
+                "h2d_bytes": self.clock.bytes["h2d"],
+                "d2h_bytes": self.clock.bytes["d2h"]}
+
+
+def frame_step(p: Params, cfg: SAM2Config, feat: torch.Tensor,
+               pos16: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
+               mem_all: torch.Tensor, pos_all: torch.Tensor,
+               ptr_tokens: torch.Tensor):
+    """One propagated frame: memory attention over the bank, the decoder
+    prompted with no point (the best of the multimask outputs), and the
+    frame's memory from its mask (sigmoid x scale + bias). Returns (the
+    picked candidate's low-res logits before the object gate, (2,) fp32:
+    the best index and the object logit, the memory, the object
+    pointer)."""
+    cond_feat = memory_attention(p, cfg, feat, pos16, mem_all, pos_all,
+                                 ptr_tokens)
+    decided: Dict[str, torch.Tensor] = {}
+    _, high_res, obj_ptr, _ = forward_sam_heads(
+        p, cfg, cond_feat, s0, s1, None, multimask_output=True,
+        decided=decided)
+    mask_for_mem = torch.sigmoid(high_res) * cfg.sigmoid_scale_mem \
+        + cfg.sigmoid_bias_mem
+    return (decided["picked"],
+            torch.stack([decided["best"].float(), decided["obj"].float()]),
+            encode_memory(p, cfg, feat, mask_for_mem), obj_ptr.float())
+
+
+def _use_graph(device: torch.device) -> bool:
+    return device.type == "cuda"
+
+
+def _graphed(fn, device: torch.device, pool=None):
+    """(``fn()`` run once for real on a side stream, as capture asks of a
+    warm-up; a replay of ``fn``'s launches as one CUDA graph captured there,
+    which returns the graph's output buffers; the graph's memory pool, which
+    later captures may share). The capture is begun by hand:
+    ``torch.cuda.graph`` would first synchronise, collect garbage and empty
+    the allocator's cache, which the next clip would fill again."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        first = fn()
+        graph.capture_begin(*(() if pool is None else (pool,)))
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+    def replay():
+        graph.replay()
+        return out
+
+    return first, replay, graph.pool()
+
+
+class _FrameGraph:
+    """``frame_step`` at one shape of the bank (its memories and pointers)
+    as a CUDA graph. A clip's bank takes 16 shapes (1 to 7 memories, 1 to
+    16 pointers), each met first in the first clip, which captures it;
+    every later frame of that shape replays it: before, the host's enqueue
+    of a frame's ~700 launches, not the device, set a frame's time. The
+    inputs are copied into the graph's buffers and the outputs cloned out
+    of them, so a replay computes what ``frame_step`` computes."""
+
+    def __init__(self, p: Params, cfg: SAM2Config, pos16: torch.Tensor,
+                 inputs, pool=None):
+        self.p, self.cfg, self.pos16 = p, cfg, pos16
+        self.inputs = [x.clone() for x in inputs]
+        self.first, self.replay, self.pool = _graphed(self._step,
+                                                      pos16.device, pool)
+
+    def _step(self):
+        feat, s0, s1, mems, pos_all, ptrs = self.inputs
+        return frame_step(self.p, self.cfg, feat, self.pos16, s0, s1, mems,
+                          pos_all, ptrs.reshape(-1, self.cfg.mem_dim))
+
+    def __call__(self, inputs):
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        return tuple(x.clone() for x in self.replay())
+
+
 class SAM2VideoPredictor:
     """init_state / add_new_points / propagate_in_video. Propagation covers
     the frames after (forward) or before (reverse) the conditioning frame;
-    that frame keeps its prompted mask."""
+    that frame keeps its prompted mask. A ``record`` (``TrackRecord``), if
+    set, takes the calls' decisions, marks and counters."""
 
     def __init__(self, params: Params, cfg: SAM2Config):
         self.p = params
@@ -433,22 +628,35 @@ class SAM2VideoPredictor:
         self._feats = None
         self._orig = None
         self._cond: Optional[Dict[str, Any]] = None
+        self.record: Optional[TrackRecord] = None
+        # CUDA graphs of the frame step by the bank's (memories, pointers)
+        self._graphs: Dict[tuple, _FrameGraph] = {}
+
+    def _copied(self, direction: str, nbytes: int) -> None:
+        if self.record is not None:
+            self.record.clock.copied(direction, nbytes)
 
     def init_state(self, frames: List[np.ndarray], enc_chunk: int = 8) -> None:
-        """frames: (H, W, 3) uint8 RGB, resized to the square model input
-        (bilinear, OpenCV's INTER_LINEAR; on the device without OpenCV) and
-        ImageNet-normalised, encoded ``enc_chunk`` frames a call (the last
-        chunk may be shorter: chunks only bound the memory)."""
+        """frames: (H, W, 3) uint8 RGB, uploaded once as they are, then
+        resized on the device to the square model input with OpenCV's
+        INTER_LINEAR arithmetic (``utils/frames.py::cv_resize``, equal to
+        ``cv2.resize`` in every bit) and ImageNet-normalised, encoded
+        ``enc_chunk`` frames a call (the last chunk may be shorter: chunks
+        only bound the memory). Nothing in the encode waits for the
+        device."""
         s = self.cfg.image_size
         self._orig = frames[0].shape[:2]
         mean = torch.from_numpy(IMG_MEAN).to(self.device)
         std = torch.from_numpy(IMG_STD).to(self.device)
+        clip = FU.upload_frames(frames, self.device)
+        self._copied("h2d", clip.nbytes)
         parts = []
         for i in range(0, len(frames), enc_chunk):
-            batch = torch.stack([resize_linear(f, s, s, self.device)
-                                 for f in frames[i:i + enc_chunk]]).float()
+            batch = FU.cv_resize(clip[i:i + enc_chunk], s, s,
+                                 area=False).float()
             px = ((batch / 255.0 - mean) / std).to(self.dtype)
             parts.append(encode_frames(self.p, self.cfg, px))
+        del clip
         pos16 = parts[0][3]
         self._feats = tuple(torch.cat([pt[j] for pt in parts])
                             for j in range(3)) + (pos16,)
@@ -465,19 +673,26 @@ class SAM2VideoPredictor:
                                ).float()[None].to(self.device)
         lbl = torch.from_numpy(np.asarray(labels, np.int32))[None].to(
             self.device)
+        self._copied("h2d", pts.nbytes + lbl.nbytes)
         feat16, s1, s0, _ = self._feats
         feat = feat16[frame_idx] + self.p["no_mem_embed"].to(feat16.dtype)
+        decided: Dict[str, torch.Tensor] = {}
         low_res, high_res, obj_ptr, _ = forward_sam_heads(
             self.p, cfg, feat, s0[frame_idx], s1[frame_idx],
             encode_points(self.p, cfg, pts, lbl),
-            multimask_output=len(labels) <= 1)
+            multimask_output=len(labels) <= 1, decided=decided)
         # the conditioning memory from the binarised mask (no sigmoid)
-        mask_for_mem = (high_res > 0).float() * cfg.sigmoid_scale_mem \
+        binary = high_res > 0
+        mask_for_mem = binary.float() * cfg.sigmoid_scale_mem \
             + cfg.sigmoid_bias_mem
         mem = encode_memory(self.p, cfg, feat16[frame_idx], mask_for_mem)
         self._cond = {"frame": frame_idx, "mem": mem, "ptr": obj_ptr.float(),
                       "low_res": low_res}
-        return self._mask_to_orig(low_res[None])[0]
+        if self.record is not None:
+            self.record.prompt = dict(decided, frame=frame_idx, mask=binary)
+        out = self._mask_to_orig(low_res[None])[0]
+        self._copied("d2h", out.nbytes)
+        return out
 
     def _mask_to_orig(self, logits: torch.Tensor) -> np.ndarray:
         h, w = self._orig
@@ -486,53 +701,91 @@ class SAM2VideoPredictor:
     def propagate_logits(self, order: List[int]) -> torch.Tensor:
         """Track through ``order`` (the frame indices after the
         conditioning one, in traversal order, at least one): (len(order),
-        4g, 4g) fp32 low-res logits."""
+        4g, 4g) fp32 low-res logits. Each frame's enqueue runs in a
+        profiler range ``track.frame``; on CUDA each frame replays the
+        graph of its bank's shape (``_FrameGraph``)."""
         cfg = self.cfg
+        rec = self.record
         feat16, s1, s0, pos16 = self._feats
         g = feat16.shape[1]
         md = cfg.mem_dim
         recent, max_ptrs = cfg.num_maskmem - 1, cfg.max_obj_ptrs - 1
-        sine = torch.from_numpy(sine_pos_embed(g, g, md)).to(self.device)
+        sine = sine_on(g, md, str(self.device), torch.float32)
         tpos = self.p["maskmem_tpos_enc"].float()
-        cond_pos = sine + tpos[cfg.num_maskmem - 1]
+        # the bank's positions by its count of recent memories: the
+        # conditioning one, then ages n .. 1 (oldest first)
+        bank_pos = [torch.stack([sine + tpos[cfg.num_maskmem - 1]]
+                                + [sine + tpos[a - 1]
+                                   for a in range(n, 0, -1)])
+                    for n in range(recent + 1)]
+        graph = _use_graph(self.device)
         mems: List[torch.Tensor] = []          # newest last
         ptrs: List[torch.Tensor] = []
-        out = []
+        out, decisions = [], []
         for t in order:
-            ages = range(len(mems), 0, -1)     # oldest first
-            mem_all = torch.stack([self._cond["mem"]] + mems)
-            pos_all = torch.stack([cond_pos] + [sine + tpos[a - 1]
-                                                for a in ages])
-            ptr_tokens = torch.stack([self._cond["ptr"]] + ptrs).reshape(
-                -1, md)
-            cond_feat = memory_attention(self.p, cfg, feat16[t], pos16,
-                                         mem_all, pos_all, ptr_tokens)
-            low_res, high_res, obj_ptr, _ = forward_sam_heads(
-                self.p, cfg, cond_feat, s0[t], s1[t], None,
-                multimask_output=True)
-            mask_for_mem = torch.sigmoid(high_res) * cfg.sigmoid_scale_mem \
-                + cfg.sigmoid_bias_mem
-            mems = (mems + [encode_memory(self.p, cfg, feat16[t],
-                                          mask_for_mem)])[-recent:]
-            ptrs = (ptrs + [obj_ptr.float()])[-max_ptrs:]
-            out.append(low_res)
-        return torch.stack(out)
+            with profiling.annotate("track.frame"):
+                inputs = (feat16[t], s0[t], s1[t],
+                          torch.stack([self._cond["mem"]] + mems),
+                          bank_pos[len(mems)],
+                          torch.stack([self._cond["ptr"]] + ptrs))
+                slots, n_ptr = 1 + len(mems), 1 + len(ptrs)
+                if not graph:
+                    step = frame_step(self.p, cfg, inputs[0], pos16,
+                                      *inputs[1:5],
+                                      inputs[5].reshape(-1, md))
+                elif (slots, n_ptr) in self._graphs:
+                    step = self._graphs[slots, n_ptr](inputs)
+                else:
+                    pool = next(iter(self._graphs.values())).pool \
+                        if self._graphs else None
+                    made = _FrameGraph(self.p, cfg, pos16, inputs, pool)
+                    self._graphs[slots, n_ptr] = made
+                    step = made.first
+                picked, decided, mem, ptr = step
+                mems = (mems + [mem])[-recent:]
+                ptrs = (ptrs + [ptr])[-max_ptrs:]
+                out.append(picked)
+                decisions.append(decided)
+            if rec is not None:
+                tokens = n_ptr * cfg.dim // md
+                rec.add_frame(slots=slots, keys=slots * g * g + tokens,
+                              ptr_tokens=tokens)
+        picked, decided = torch.stack(out), torch.stack(decisions)
+        if rec is not None:
+            rec.add_direction(order, picked, decided)
+        # the object gate: a frame whose object logit is not > 0 has none
+        return picked.masked_fill(~(decided[:, 1] > 0)[:, None, None],
+                                  NO_OBJ_SCORE)
 
     def propagate_in_video(self, reverse: bool = False) -> np.ndarray:
         """(T, H, W) bool masks; frames on the untracked side of the
-        conditioning frame are False."""
+        conditioning frame are False. With a record, the host waits for the
+        last frame before the span ``track.masks`` (the logits of the whole
+        clip, their resize to the frames' size, the threshold and the copy
+        back), as ``Runner.to_host`` does before ``entry.output``."""
         assert self._cond is not None, "add_new_points first"
         feat16 = self._feats[0]
         n = feat16.shape[0]
         start = self._cond["frame"]
         order = list(range(start - 1, -1, -1)) if reverse \
             else list(range(start + 1, n))
+        tracked = self.propagate_logits(order) if order else None
+        if self.record is None:
+            return self._video_masks(start, order, tracked)
+        self.record.clock.durations_ms()
+        with self.record.clock.span("track.masks"):
+            masks = self._video_masks(start, order, tracked)
+        self._copied("d2h", masks.nbytes)
+        return masks
+
+    def _video_masks(self, start: int, order: List[int],
+                     tracked: Optional[torch.Tensor]) -> np.ndarray:
         g4 = self._cond["low_res"].shape[-1]
+        n = self._feats[0].shape[0]
         logits = torch.full((n, g4, g4), NO_OBJ_SCORE, device=self.device)
         logits[start] = self._cond["low_res"]
         if order:
-            logits[torch.as_tensor(order, device=self.device)] = \
-                self.propagate_logits(order)
+            logits[torch.as_tensor(order, device=self.device)] = tracked
         return self._mask_to_orig(logits)
 
 

@@ -114,7 +114,10 @@ def timed(times: Dict[str, List[float]], name: str, fn: Callable):
 def instrumented(models, times: Dict[str, List[float]]):
     """Within: the track stage's model calls, and SAM's image encode,
     SAM2's encode and the pieces of each propagation step, land their
-    CUDA-event times in ``times``."""
+    CUDA-event times in ``times``. On the card a propagation step replays
+    the CUDA graph of its bank's shape once ``warm_up`` has captured it
+    (``decomp/sam2.py::_FrameGraph``), so its pieces are not called and
+    only the step's direction is timed."""
     from mimo_tpu_torch.decomp import sam as SAM
     from mimo_tpu_torch.decomp import sam2 as SAM2
     saved = []
