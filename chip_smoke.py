@@ -72,7 +72,11 @@ Phases, in order; any failure exits non-zero:
    region that is not constant, and a second run equal in every bit; then
    one 150-frame (the CLI's --max-frames) 1-step run, which must fit the
    card;
-7. decomp track: a small-input agreement check (SAM2 at real head widths
+7. decomp track: Hiera's row passes against the eager chain
+   (``hiera_rows_check``: bias + GELU over every bf16 pattern and each pass
+   at stage-1 / stage-3 shapes equal in every bit, LN within 1 bf16 ulp,
+   a whole Hiera-L encode, each pass's time beside its byte bound), then
+   a small-input agreement check (SAM2 at real head widths
    and reduced depth at 512x512, 10 frames so the memory ring fills and
    wraps, card bf16 + flash against the CPU fp32 plain path: the frames'
    encoding, the memory attention and the mask decoder, each call taken
@@ -244,9 +248,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-from mimo_tpu_torch.tools.timing import (PEAK_BF16, PEAK_FP32,  # noqa: E402
-                                         SFU_PER_CLOCK, bound, exp2_ms,
-                                         flash_work, sm_clock)
+from mimo_tpu_torch.tools.timing import (PEAK_BF16, PEAK_BYTES,  # noqa: E402
+                                         PEAK_FP32, SFU_PER_CLOCK, bound,
+                                         exp2_ms, flash_work, sm_clock)
 from mimo_tpu_torch.tools.profile_decomp import framed_bodies  # noqa: E402
 
 STEPS = 4            # DDIM steps of the full-width run
@@ -357,7 +361,9 @@ def phase_build() -> None:
         if any(k in name for k in ("gemm_kernel", "flash_fwd_kernel",
                                     "flash_wide_kernel", "tattn_kernel",
                                     "gn_kernel", "gn_resident_kernel",
-                                    "ln_rows_kernel", "ln_rows_wide_kernel")) \
+                                    "ln_rows_kernel", "ln_rows_wide_kernel",
+                                    "hiera_bias_gelu_kernel",
+                                    "hiera_bias_res_kernel")) \
                 and not spills.startswith("0 bytes"):
             bad.append(f"{name}: {spills}")
     log(f"  flash ablation builds ({len(ablation)}; a spill there counts in "
@@ -1738,6 +1744,188 @@ def track_graph_agreement() -> None:
                              f"eager one in calls {bad}")
 
 
+# Hiera-L's row passes a chunk of 8 frames at 1024^2 (rows, width): stage
+# 1 (256^2 tokens, C = 144: GELU over 4C = 576) and stage 3 (64^2, 576)
+HIERA_ROW_STAGES = {"stage 1": (8 * 256 * 256, 144),
+                    "stage 3": (8 * 64 * 64, 576)}
+# the LayerNorm pass's (rows, width) at the four stages
+HIERA_LN_SHAPES = ((8 * 256 * 256, 144), (8 * 128 * 128, 288),
+                   (8 * 64 * 64, 576), (8 * 32 * 32, 1152))
+# and their windowed blocks' un-partitions: (grid, window, q-pooled), the
+# last two a q-pooling block (stage 1 -> 2) and a grid the window pads
+HIERA_UNPARTITIONS = (((256, 256), 8, False), ((64, 64), 16, False),
+                      ((256, 256), 8, True), ((18, 22), 4, False))
+# how much further from the fp32 encode the fused bf16 encode may lie
+# than the eager bf16 one (mean gap a stage): the LN pass's variance
+# formula moves a value by a bf16 step at most, which the random-weight
+# blocks carry on, against a fault that moves whole rows
+HIERA_ENCODE_GAP = 2.0
+
+
+def _bits_differ(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Elements of two bf16 tensors whose bits differ."""
+    return int((got.view(torch.int16) != want.view(torch.int16)).sum())
+
+
+def _ln_ulps(got: torch.Tensor, ref: torch.Tensor, bias: torch.Tensor):
+    """(largest |got - ref| in bf16 ulps at the scale of the affine's
+    terms, max(|ref|, |ref - bias|, |bias|); largest |got - ref|) of a bf16
+    LayerNorm against the fp32 one. Near zero, where the normalised term
+    and the bias cancel, a bf16 step is far smaller than the terms' fp32
+    rounding, so steps of the result itself mean nothing there."""
+    terms = torch.maximum(torch.maximum(ref.abs(), (ref - bias).abs()),
+                          bias.abs().expand_as(ref))
+    ulp = torch.exp2(torch.floor(torch.log2(terms.clamp_min(2.0 ** -126)))
+                     - 7)
+    gap = (got.float() - ref).abs()
+    return float((gap / ulp).max()), float(gap.max())
+
+
+def hiera_rows_check() -> None:
+    """The Hiera block's row passes (``ops/rows.py``, csrc/hiera_rows.cu)
+    and LayerNorm pass (``ops/ffn.py::ln_rows``) against the eager chain on
+    the card: bias + GELU over all 65,536 bf16 patterns, and bias + GELU
+    and bias + residual (with and without the window map) at stage-1 and
+    stage-3 shapes, each equal in every bit; LN within 1 bf16 ulp of
+    ``F.layer_norm`` in fp32 at Hiera-L's four widths (``_ln_ulps``); a
+    whole Hiera-L encode (2 frames at 1024^2): fused twice equal in every
+    bit, the row passes with the eager LN equal in every bit to eager, and
+    the fused four stage features no further from an fp32 encode than
+    ``HIERA_ENCODE_GAP`` times the eager ones; each pass's time beside its
+    HBM byte bound and the eager chain's."""
+    import torch.nn.functional as F
+    from mimo_tpu_torch.decomp import hiera as H
+    from mimo_tpu_torch.decomp.vit import _window_unpartition
+    from mimo_tpu_torch.ops import attention as AT
+    from mimo_tpu_torch.ops import ffn as FF
+    from mimo_tpu_torch.ops import rows as R
+    log("  Hiera row passes against the eager chain:")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    bad = []
+    # every bf16 pattern through GELU: bias 0 leaves p + b = p
+    pats = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(
+        np.int16)).view(torch.bfloat16).reshape(4096, 16).to(dev)
+    zero = torch.zeros(16, dtype=torch.bfloat16, device=dev)
+    n = _bits_differ(call_wrapper(R.bias_gelu, pats, zero),
+                     R.bias_gelu_plain(pats, zero))
+    log(f"    bias + GELU, all 65536 bf16 patterns: {n} differ in bits")
+    bad += [("gelu patterns", n)] if n else []
+    timings = []
+    for stage, (rows, c) in HIERA_ROW_STAGES.items():
+        hid = 4 * c
+        p, b = randn(rows, hid, scale=2.0), randn(hid, scale=0.5)
+        n = _bits_differ(call_wrapper(R.bias_gelu, p, b),
+                         R.bias_gelu_plain(p, b))
+        log(f"    bias + GELU {stage} ({rows} x {hid}): {n} differ in bits")
+        bad += [(f"gelu {stage}", n)] if n else []
+        timings.append((f"bias + GELU {stage} ({rows} x {hid})",
+                        4 * rows * hid, lambda p=p, b=b: R.bias_gelu(p, b),
+                        lambda p=p, b=b: R.bias_gelu_plain(p, b)))
+        p, res, b = randn(rows, c), randn(rows, c, scale=4.0), randn(c)
+        n = _bits_differ(call_wrapper(R.bias_residual, p, b, res),
+                         res + (p + b))
+        log(f"    bias + residual {stage} ({rows} x {c}): {n} differ in "
+            f"bits")
+        bad += [(f"residual {stage}", n)] if n else []
+        timings.append((f"bias + residual {stage} ({rows} x {c})",
+                        6 * rows * c,
+                        lambda p=p, b=b, r=res: R.bias_residual(p, b, r),
+                        lambda p=p, b=b, r=res: r + (p + b)))
+        del p, res
+    for (gh, gw), window, pooled in HIERA_UNPARTITIONS:
+        c = 144 if window == 8 else 576
+        hp, wp = -(-gh // window) * window, -(-gw // window) * window
+        f = 2 if pooled else 1
+        un = R.Unpartition(gh // f, gw // f, window // f, (hp // f, wp // f))
+        frames = 8
+        hp, wp = un.padded
+        p = randn(frames * hp * wp // un.ws ** 2, un.ws ** 2, c)
+        res, b = randn(frames, un.hgt * un.wid, c, scale=4.0), randn(c)
+
+        def eager(p=p, b=b, res=res, un=un):
+            return res + _window_unpartition(p + b, frames, un.hgt, un.wid,
+                                             un.ws, un.padded)
+        what = (f"bias + un-partition + residual, {frames} x {gh}x{gw} "
+                f"window {window}{' q-pooled' if pooled else ''} (C {c})")
+        n = _bits_differ(call_wrapper(R.bias_residual, p, b, res, un),
+                         eager())
+        log(f"    {what}: {n} differ in bits")
+        bad += [(what, n)] if n else []
+        if (gh, window, pooled) == (256, 8, False):
+            timings.append((what, 6 * res.numel(),
+                            lambda p=p, b=b, r=res, u=un:
+                            R.bias_residual(p, b, r, u), eager))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tokens, c in HIERA_LN_SHAPES:
+        x, sc, bi = randn(tokens, c, scale=2.0), randn(c), randn(c)
+        ref = F.layer_norm(x.float(), (c,), sc.float(), bi.float(), 1e-6)
+        ulps, gap = _ln_ulps(call_wrapper(FF.ln_rows, x, sc, bi, 1e-6), ref,
+                             bi.float())
+        log(f"    LayerNorm ({tokens} x {c}, eps 1e-6, "
+            f"{FF.ln_rows_plan(tokens, c, sms)}): against F.layer_norm in "
+            f"fp32 {ulps:.3f} bf16 ulp at the terms' scale (largest |d| "
+            f"{gap:.3g})")
+        bad += [(f"LayerNorm {c}", ulps)] if ulps > 1 else []
+        timings.append((f"LayerNorm ({tokens} x {c})", 4 * tokens * c,
+                        lambda x=x, s=sc, b=bi: FF.ln_rows(x, s, b, 1e-6),
+                        lambda x=x, s=sc, b=bi: FF.ln_rows_plain(x, s, b,
+                                                                 1e-6)))
+        del x
+    # a whole Hiera-L encode: fused (twice), the row passes fused with the
+    # eager LayerNorm, eager, and eager in fp32
+    cfg = H.HieraConfig()
+    params = H.hiera_init(torch.Generator(device=dev).manual_seed(5), cfg,
+                          torch.bfloat16)
+    px = randn(2, 1024, 1024, 3)
+    fused = H.hiera_apply(params, cfg, px)
+    again = H.hiera_apply(params, cfg, px)
+    with patched(FF, "ln_rows", FF.ln_rows_plain):
+        rows_only = H.hiera_apply(params, cfg, px)
+    with patched(FF, "ln_rows", FF.ln_rows_plain), \
+            patched(R, "bias_gelu", R.bias_gelu_plain), \
+            patched(R, "bias_residual", R.bias_residual_plain):
+        eager = H.hiera_apply(params, cfg, px)
+        with patched(H, "dispatch_sdpa", AT.attention_plain):
+            fp32 = H.hiera_apply(_map_tree(params, lambda t: t.float()),
+                                 cfg, px.float())
+    same = all(torch.equal(a, b) for a, b in zip(fused, again))
+    rows_same = all(torch.equal(a, b) for a, b in zip(rows_only, eager))
+    ratios = []
+    for i, (f, e, r) in enumerate(zip(fused, eager, fp32)):
+        gf, ge = ((t.float() - r).abs() for t in (f, e))
+        ratios.append(float(gf.mean()) / float(ge.mean()))
+        log(f"    encode stage {i + 1} {tuple(f.shape)}, mean |value| "
+            f"{float(r.abs().mean()):.4g}: to fp32 fused max / mean gap "
+            f"{float(gf.max()):.4g} / {float(gf.mean()):.4g}, eager "
+            f"{float(ge.max()):.4g} / {float(ge.mean()):.4g}; fused to eager "
+            f"{float((f.float() - e.float()).abs().mean()):.4g} (finite "
+            f"{bool(torch.isfinite(f.float()).all())})")
+    log(f"    encode fused twice: {'equal in every bit' if same else 'DIFFER'}"
+        f"; the row passes with the eager LayerNorm against eager: "
+        f"{'equal in every bit' if rows_same else 'DIFFER'}; fused / eager "
+        f"mean gap to fp32 {[round(x, 3) for x in ratios]} (limit "
+        f"{HIERA_ENCODE_GAP})")
+    if not (same and rows_same) or max(ratios) > HIERA_ENCODE_GAP or not all(
+            torch.isfinite(f.float()).all() for f in fused):
+        bad.append(("encode", same, rows_same, ratios))
+    del params, fused, again, rows_only, eager, fp32, px
+    for what, nbytes, run, plain in timings:
+        ms, plain_ms = cuda_ms(run, 20), cuda_ms(plain, 5)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"    time {what}: {ms:.4f} ms, eager {plain_ms:.4f} ms; byte "
+            f"bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of it)")
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"the Hiera row passes differ from the eager "
+                             f"chain: {bad}")
+
+
 def phase_decomp():
     """The decomposition half's track stage at full width through
     tools/profile_decomp.py: SAM ViT-H, SAM2 Hiera-L and ViTPose-H in bf16
@@ -1745,6 +1933,7 @@ def phase_decomp():
     the timed one (each encodes the clip), and the checks: the two runs
     must give equal bits. Returns the timed run's launch counts."""
     log("== phase 7: decomp track")
+    hiera_rows_check()
     small_decomp_agreement()
     track_graph_agreement()
     from mimo_tpu_torch.decomp import factory as FA

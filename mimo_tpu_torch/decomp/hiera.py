@@ -12,6 +12,13 @@ Global attention over >= 1024 queries (the three global blocks of stage 3
 at 1024^2: 64x64 tokens, 8 heads of 72) goes to ``dispatch_sdpa`` with q,
 k and v as strided views of the one q|k|v product; the rest to
 ``F.scaled_dot_product_attention``.
+
+Between a block's products (cuBLAS, bias-free) its elementwise chains are
+bf16 row passes on the card: LayerNorm by ``ops/ffn.py::ln_rows``, fc1's
+bias + GELU and the bias + residual after fc2 and proj_attn (a windowed
+block's product read through the inverse window partition) by
+``ops/rows.py``, equal in every bit to the eager chain they replace (LN
+within a bf16 ulp on the card; the CPU takes the eager chain).
 """
 
 from __future__ import annotations
@@ -25,9 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from mimo_tpu_torch.decomp.vit import (_normal, _window_partition,
-                                       _window_unpartition, attention_heads,
-                                       gelu, resize_grid)
+                                       attention_heads, resize_grid)
 from mimo_tpu_torch.models import layers as L
+from mimo_tpu_torch.ops import ffn as FF
+from mimo_tpu_torch.ops import rows as R
 from mimo_tpu_torch.ops.attention import dispatch_sdpa, flash_applies
 
 Params = Dict[str, Any]
@@ -123,8 +131,9 @@ def _maxpool2(x: torch.Tensor) -> torch.Tensor:
 
 def _attn(blk: Params, x: torch.Tensor, heads: int, dout: int,
           q_pool: bool, hgt: int, wid: int):
-    """MultiScaleAttention: q|k|v at dout, optional 2x2 max pool of q
-    before attention. x: (B, H*W, din). Returns (out, oh, ow)."""
+    """MultiScaleAttention up to its output projection: q|k|v at dout,
+    optional 2x2 max pool of q before attention. x: (B, H*W, din). Returns
+    (the heads' output (B, oh*ow, dout), oh, ow)."""
     b = x.shape[0]
     qkv = L.linear(blk["qkv"], x).reshape(b, hgt * wid, 3, dout)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -140,7 +149,12 @@ def _attn(blk: Params, x: torch.Tensor, heads: int, dout: int,
         o = attention_heads(q.reshape(b, -1, heads, d),
                             k.reshape(b, -1, heads, d),
                             v.reshape(b, -1, heads, d)).reshape(b, -1, dout)
-    return L.linear(blk["proj_attn"], o), oh, ow
+    return o, oh, ow
+
+
+def _product(lin: Params, x: torch.Tensor) -> torch.Tensor:
+    """x · W of a linear layer, its bias left to the row pass after it."""
+    return torch.matmul(x, lin["kernel"].to(x.dtype))
 
 
 def hiera_pos_embed(p: Params, cfg: HieraConfig, gh: int,
@@ -166,7 +180,8 @@ def hiera_apply(p: Params, cfg: HieraConfig,
     outputs = []
     for i, (blk, (din, dout, heads, window, q_pool)) in enumerate(
             zip(p["blocks"], cfg.block_plan())):
-        y = L.layer_norm(blk["ln1"], tokens, cfg.ln_eps)
+        ln1, ln2 = blk["ln1"], blk["ln2"]
+        y = FF.ln_rows(tokens, ln1["scale"], ln1["bias"], cfg.ln_eps)
         if "proj" in blk:
             shortcut = L.linear(blk["proj"], y)
             if q_pool:
@@ -175,26 +190,25 @@ def hiera_apply(p: Params, cfg: HieraConfig,
         else:
             shortcut = tokens
 
+        un = None
         if window:
             yw, (hp, wp) = _window_partition(y, gh, gw, window)
-            aw, _, _ = _attn(blk, yw, heads, dout, q_pool, window, window)
-            if q_pool:
-                # each window's queries pooled 2x2: unpartition at window/2
-                # onto the pooled grid
-                oh, ow = gh // 2, gw // 2
-                a = _window_unpartition(aw, b, oh, ow, window // 2,
-                                        (hp // 2, wp // 2))
-            else:
-                oh, ow = gh, gw
-                a = _window_unpartition(aw, b, gh, gw, window, (hp, wp))
+            o, _, _ = _attn(blk, yw, heads, dout, q_pool, window, window)
+            # each window's queries pooled 2x2: unpartition at window/2
+            # onto the pooled grid
+            f = 2 if q_pool else 1
+            un = R.Unpartition(gh // f, gw // f, window // f,
+                               (hp // f, wp // f))
+            gh, gw = un.hgt, un.wid
         else:
-            a, oh, ow = _attn(blk, y, heads, dout, q_pool, gh, gw)
+            o, gh, gw = _attn(blk, y, heads, dout, q_pool, gh, gw)
 
-        gh, gw = oh, ow
-        tokens = shortcut + a
-        y2 = L.layer_norm(blk["ln2"], tokens, cfg.ln_eps)
-        tokens = tokens + L.linear(blk["fc2"],
-                                   gelu(L.linear(blk["fc1"], y2)))
+        lin = blk["proj_attn"]
+        tokens = R.bias_residual(_product(lin, o), lin["bias"], shortcut, un)
+        y2 = FF.ln_rows(tokens, ln2["scale"], ln2["bias"], cfg.ln_eps)
+        h = R.bias_gelu(_product(blk["fc1"], y2), blk["fc1"]["bias"])
+        tokens = R.bias_residual(_product(blk["fc2"], h), blk["fc2"]["bias"],
+                                 tokens)
         if i in stage_last:
             outputs.append(tokens.reshape(b, gh, gw, dout))
     return outputs

@@ -56,6 +56,8 @@ from mimo_tpu_torch.decomp.sam import (embed_points, mlp3, mlp3_init,
 from mimo_tpu_torch.decomp.vit import _normal, attention_heads, gelu
 from mimo_tpu_torch.decomp.vitpose import deconv2d, deconv_init
 from mimo_tpu_torch.models import layers as L
+from mimo_tpu_torch.ops import ffn as FF
+from mimo_tpu_torch.ops import rows as R
 from mimo_tpu_torch.utils import frames as FU
 from mimo_tpu_torch.utils import profiling
 
@@ -449,6 +451,22 @@ IMG_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMG_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
+# the encode's Hiera passes: the row passes' kernel launches (bias + GELU,
+# fc2 and proj_attn bias + residual: 3 a block on the card), their plain
+# versions' calls (3 a block on the CPU) and the LayerNorm pass's launches
+# (2 a block on the card)
+HIERA_PASSES = ("hiera_fused_passes", "hiera_eager_passes",
+                "hiera_ln_passes")
+
+
+def hiera_passes() -> Dict[str, int]:
+    """The process's counts of ``HIERA_PASSES`` so far."""
+    fns = (R.bias_gelu, R.bias_residual)
+    return dict(zip(HIERA_PASSES, (sum(f.launches for f in fns),
+                                   sum(f.plain_calls for f in fns),
+                                   FF.ln_rows.launches)))
+
+
 class TrackRecord:
     """What one tracking call did, read after the call: the clip's phases
     and host spans (``clock``, a ``pipelines.pose2vid.PhaseClock``, which
@@ -458,13 +476,15 @@ class TrackRecord:
     ``decided``, with its binarised 16g x 16g mask), each direction's
     frames as ``propagate_logits`` stacked them (the picked candidate's
     low-res logits before the object gate, and a frame's best index and
-    object logit), and the counters of each propagated frame: memory slots,
-    keys of a cross-attention and pointer tokens. Recording never
-    synchronises and copies nothing on the device; the last call's record
-    holds its stacked logits until the next call."""
+    object logit), the counters of each propagated frame: memory slots,
+    keys of a cross-attention and pointer tokens, and the encode's Hiera
+    passes (``hiera``, by ``hiera_passes``). Recording never synchronises
+    and copies nothing on the device; the last call's record holds its
+    stacked logits until the next call."""
 
     def __init__(self, clock):
         self.clock = clock
+        self.hiera = dict.fromkeys(HIERA_PASSES, 0)
         self.prompt: Dict[str, Any] = {}
         self.frames: List[int] = []             # traversal order
         self.picks: List[torch.Tensor] = []     # (n, 4g, 4g) a direction
@@ -517,7 +537,8 @@ class TrackRecord:
         cached), ``prompt`` and each propagated frame's ``frame_ms`` on the
         device's timeline (ms), their mean, ``frames`` (propagated), the
         mean ``slots``, ``keys`` and ``ptr_tokens`` a frame attended,
-        ``clip``, ``spans`` (host) and ``h2d_bytes`` / ``d2h_bytes``."""
+        ``clip``, ``spans`` (host), ``h2d_bytes`` / ``d2h_bytes`` and the
+        encode's ``HIERA_PASSES`` (0 where it was cached)."""
         ms = self.clock.durations_ms()
         frame_ms = [v for k, v in ms.items() if k.startswith("frame")]
 
@@ -531,7 +552,7 @@ class TrackRecord:
                 "clip": self.clock.clip,
                 "spans": [dict(s) for s in self.clock.spans],
                 "h2d_bytes": self.clock.bytes["h2d"],
-                "d2h_bytes": self.clock.bytes["d2h"]}
+                "d2h_bytes": self.clock.bytes["d2h"], **self.hiera}
 
 
 def frame_step(p: Params, cfg: SAM2Config, feat: torch.Tensor,
@@ -650,6 +671,7 @@ class SAM2VideoPredictor:
         std = torch.from_numpy(IMG_STD).to(self.device)
         clip = FU.upload_frames(frames, self.device)
         self._copied("h2d", clip.nbytes)
+        passes = hiera_passes()
         parts = []
         for i in range(0, len(frames), enc_chunk):
             batch = FU.cv_resize(clip[i:i + enc_chunk], s, s,
@@ -657,6 +679,9 @@ class SAM2VideoPredictor:
             px = ((batch / 255.0 - mean) / std).to(self.dtype)
             parts.append(encode_frames(self.p, self.cfg, px))
         del clip
+        if self.record is not None:
+            self.record.hiera = {k: v - passes[k]
+                                 for k, v in hiera_passes().items()}
         pos16 = parts[0][3]
         self._feats = tuple(torch.cat([pt[j] for pt in parts])
                             for j in range(3)) + (pos16,)

@@ -10,10 +10,12 @@ def kernel_wrappers():
     from mimo_tpu_torch.ops import ffn as FF
     from mimo_tpu_torch.ops import flash_attention as FA
     from mimo_tpu_torch.ops import groupnorm as GN
+    from mimo_tpu_torch.ops import rows as R
     from mimo_tpu_torch.ops import temporal_attention as TA
     return (*FA.FLASH_WRAPPERS, GN.group_norm_fused, FF.ln_rows,
             FF.ffn_ln_geglu_fused, FF.qkv_ln_fused, FF.matmul_bias_residual,
-            FF.matmul_bias, TA.temporal_attention_ln, TA.temporal_attn_core)
+            FF.matmul_bias, TA.temporal_attention_ln, TA.temporal_attn_core,
+            R.bias_gelu, R.bias_residual)
 
 
 def launch_counts() -> Dict[str, Any]:

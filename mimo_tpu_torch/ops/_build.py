@@ -56,6 +56,8 @@ _SIGNATURES = {
     "mimo_temporal_attention_fwd": ([_P, _P] + [_I] * 9 + [_F, _P], _I),
     "mimo_flash_ablate_fwd": (
         [_I, _I] + [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P], _I),
+    "mimo_hiera_bias_gelu": ([_P] * 3 + [_L, _I, _P], _I),
+    "mimo_hiera_bias_res": ([_P] * 4 + [_L] + [_I] * 6 + [_P], _I),
 }
 
 _STATE: Dict[str, object] = {}

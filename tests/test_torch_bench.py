@@ -163,14 +163,14 @@ def test_bench_times_the_generation_loop(monkeypatch):
 
 
 def test_kernel_wrappers_count_their_launches():
-    """``ops.kernel_wrappers`` lists the main path's eleven wrappers, each
+    """``ops.kernel_wrappers`` lists the main path's thirteen wrappers, each
     with its launch count; ``launch_counts`` reads them by name, and the
     three flash wrappers' (flash_attention_wide among them) by width."""
     from mimo_tpu_torch import ops
     from mimo_tpu_torch.ops import flash_attention as FA
     wrappers = ops.kernel_wrappers()
     names = [fn.__name__ for fn in wrappers]
-    assert len(set(names)) == len(wrappers) == 11
+    assert len(set(names)) == len(wrappers) == 13
     assert all(isinstance(fn.launches, int) for fn in wrappers)
     assert FA.FLASH_WRAPPERS == (FA.flash_attention_nt,
                                  FA.flash_attention_nt_bank,

@@ -45,7 +45,7 @@ SLICE_MODULES = [
     "mimo_tpu_torch.parallel", "mimo_tpu_torch.parallel.mesh",
     "mimo_tpu_torch.parallel.comm", "mimo_tpu_torch.parallel.decomp",
     "mimo_tpu_torch.entry.graft", "mimo_tpu_torch.bench",
-    "mimo_tpu_torch.tools.bench_serving",
+    "mimo_tpu_torch.tools.bench_serving", "mimo_tpu_torch.ops.rows",
 ]
 
 

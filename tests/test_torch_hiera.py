@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from mimo_tpu.decomp import hiera as JH
 from mimo_tpu_torch.decomp import hiera as H
 from mimo_tpu_torch.decomp import vit as V
+from mimo_tpu_torch.models import layers as L
 from tests.test_torch_helpers import bridge_params, nn, set_fp32_matmuls, tt
 
 set_fp32_matmuls()
@@ -81,7 +82,9 @@ def test_hiera_trunk_and_neck_match_jax(global_blocks):
 def test_global_block_over_1024_queries_takes_the_flash_dispatch(monkeypatch):
     """A global block with >= 1024 queries (the stage-3 global blocks at
     1024^2) hands dispatch_sdpa q/k/v as strided views of one q|k|v product,
-    and agrees with the JAX block (which dispatches the same way)."""
+    and agrees with the JAX block (which dispatches the same way) once its
+    output projection is applied (``hiera_apply`` leaves that to the
+    product and the row pass after ``_attn``)."""
     from mimo_tpu.models import layers as JL
     din = dout = 32
     heads, g = 4, 32
@@ -97,7 +100,9 @@ def test_global_block_over_1024_queries_takes_the_flash_dispatch(monkeypatch):
         return real(q, k, v, h)
 
     monkeypatch.setattr(H, "dispatch_sdpa", spy)
-    got, oh, ow = H._attn(bridge_params(blk), tt(x), heads, dout, False, g, g)
+    pt = bridge_params(blk)
+    o, oh, ow = H._attn(pt, tt(x), heads, dout, False, g, g)
+    got = L.linear(pt["proj_attn"], o)
     want, _, _ = JH._attn(blk, jnp.asarray(x), heads, dout, False, g, g)
     np.testing.assert_allclose(nn(got), nn(want), **TOL)
     assert (oh, ow) == (g, g)

@@ -97,6 +97,24 @@ def test_counters(params, clip):
     assert tm["d2h_bytes"] == 40 * 56 + 2 * masks.nbytes
 
 
+def test_hiera_pass_counters(params, clip):
+    """The encode's Hiera passes, logged with the clip's counters: on the
+    CPU the row passes' plain versions, 3 a block an encode chunk (the 6
+    frames are one chunk of 8), no kernel launch; 0 where the encode was
+    cached."""
+    frames, mask = clip
+    models = _models(params)
+    models.track_video(frames, mask, 0)
+    tm = models.track_video.last_record.timings()
+    depth = S2.tiny_sam2_config().hiera.depth
+    assert {k: tm[k] for k in S2.HIERA_PASSES} == {
+        "hiera_fused_passes": 0, "hiera_eager_passes": 3 * depth,
+        "hiera_ln_passes": 0}
+    models.track_video(frames, mask, 0)
+    tm = models.track_video.last_record.timings()
+    assert all(tm[k] == 0 for k in S2.HIERA_PASSES)
+
+
 HOST_READS = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
               "__float__")
 
