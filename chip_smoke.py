@@ -34,7 +34,7 @@ Phases, in order; any failure exits non-zero:
    at the decomposition's widths (d = 72 Hiera-L, d = 16 the decoders,
    d = 64 DINOv2-L over 2073 tokens with q/k/v column views); the wide-head
    flash kernel (``flash_attention_wide``) at the VAE mid block's one head
-   of d = 512 over a bench VAE chunk (B = 8, S = 6272), the encode's last
+   of d = 512 over a VAE chunk of 8 frames (B = 8, S = 6272), the encode's last
    chunk (B = 1), edit's 9604 tokens, 256x256's 1024 and a ragged 1100 /
    1000 and 1036 / 980 (a last query tile of 12 rows, a last key tile of
    20), and at 2 heads of 192, beside SDPA on the first pinned backend
@@ -52,8 +52,13 @@ Phases, in order; any failure exits non-zero:
 5. main path: a small-input agreement check (card, bf16 + kernels, against
    the CPU fp32 plain path), then a full-width MIMOConfig() generation of a
    24-frame 512x784 clip with CFG through ``entry.animate.animate``, twice
-   through one Runner; the second run's phase times and kernel launch
-   counts are printed and every count must be > 0; then the window sum of
+   through one Runner with the same seed; the second run's video must equal
+   the first's in every bit, its phase times and kernel launch counts are
+   printed and every synthesis kernel's count must be > 0 (Hiera's row
+   passes, ``TRACK_ONLY``, run on the tracker's path alone), and it runs
+   under ``torch.cuda.set_sync_debug_mode("warn")``: its host synchronisations
+   are printed by the source line that made them, with their counts (a
+   count of a multiple of the steps is one a step); then the window sum of
    a 41-frame clip (three overlapping context windows, some frames in all
    three) 20 times in fp32, which must give one result, and the clip at
    256x256 for 2 steps twice through the same Runner, whose two videos must
@@ -64,7 +69,8 @@ Phases, in order; any failure exits non-zero:
    through) at 784x784, CFG 3.5, 3 DDIM steps; prints the shots, the
    generated frames and windows, the phase times, the paste-back's time
    (``entry.edit.paste_back``, on the card), the clip's copies, the peak
-   device memory and every kernel's launch count (each must be > 0); the
+   device memory and every kernel's launch count (each synthesis kernel's
+   must be > 0); the
    card's paste-back against the host's numpy one (``composite_back``) on
    the same inputs: the largest gap in uint8 levels and the pixels that
    differ; checks 48 uint8 720x1280 frames, the occ patch equal to vid
@@ -92,7 +98,8 @@ Phases, in order; any failure exits non-zero:
    in memory: the known box on frame 0 -> SAM + clean_mask -> SAM2 forwards
    and backwards -> get_bbox, one automatic_masks and one detector call on
    frame 0; prints each call's time, the peak memory and the flash launches
-   by head width (d = 72 and d = 16 must both be > 0); checks (48, 720,
+   by head width (d = 72 and d = 16 must both be > 0, and Hiera's row
+   passes' launches too); checks (48, 720,
    480) bool masks, frame 0 equal to the prompt frame's mask, (48, 4)
    boxes inside the frame, and the timed run equal in every bit to the
    warm-up run before it (each encodes the clip);
@@ -187,26 +194,13 @@ Phases, in order; any failure exits non-zero:
    Prints each run's prepare / step / decode times, all-to-all bytes and
    seconds a step, peak memory per rank and the phase's wall time; any
    rank's failure fails the script;
-12. the bench command and the serving bench, each in a subprocess as a
-   user runs them: ``python3 -m mimo_tpu_torch bench`` at its fixed
-   workload (``MIMOConfig()``, 24 frames 512x784, 30 steps, CFG 3.5) must
-   exit 0 after its four JSON lines (provisional, two end-to-end runs,
-   final; ``bench.py``'s keys, a value > 0, the port's metric name), hold
-   its two runs to equal bit-sum checksums and launch every main-path
-   kernel (its '#' lines give the counts); then ``python3 -m
-   mimo_tpu_torch.tools.bench_serving --clips 2`` must exit 0 after its
-   JSON line with two clips' times; both commands' '#' lines (the card,
-   the phase times, peak memory, the serving loop's host synchronisations)
-   are printed;
-13. the kernels' JSON line (``launches`` from the run of the entry's
+12. the kernels' JSON line (``launches`` from the run of the entry's
    ``path``: phase 5, 6 or the tool's run of phase 4; the "decomp" path's
    flash entries count their head width's launches in phases 7 and 9; under
    "decomp-run" one row a kernel launched in phase 10, a flash wrapper's
    one a head width, with its phase-10 launches; under "frame-parallel"
    phase 3's temporal chain at the positions a rank holds and one row a
-   kernel with rank 0's launches in phase 11 (a); under "bench" one row a
-   kernel, a flash wrapper's one a head width, with its launches in phase
-   12's bench process), then the last line:
+   kernel with rank 0's launches in phase 11 (a)), then the last line:
    {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --calibrate [main] [decomp] [motion] [bk] [multi]
@@ -568,7 +562,7 @@ def phase_kernels():
 
 
 # the wide flash kernel (flash_attention_wide) at the VAE mid block's one
-# head of d = 512: (heads, d, batch, sq, sk, path) of a bench vae_chunk of 8
+# head of d = 512: (heads, d, batch, sq, sk, path) of a vae_chunk of 8
 # frames at 512x784, the encode's last chunk (1 frame: 49 query tiles of
 # 128, 98 blocks, under one wave), edit's 784x784 (the plain version's
 # logits 315 MB a 1024-query chunk), the animate CLI's 256x256, ragged
@@ -1246,24 +1240,33 @@ def phase_main_path():
         f"steps (UNet3D batch {2 * FRAMES} frames of "
         f"{HEIGHT // 8}x{WIDTH // 8} latents)")
     t0 = time.perf_counter()
-    animate(runner, ref, frames, **kw)
+    first = animate(runner, ref, frames, **kw)
     log(f"  run 1 (warm-up): {time.perf_counter() - t0:.2f} s wall")
 
     counters = reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    video = animate(runner, ref, frames, **kw)
+    video, syncs = host_syncs(lambda: animate(runner, ref, frames, **kw))
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
     tm = runner.last_timings
-    log(f"  run 2: {wall:.2f} s wall | prepare {tm['prepare']:.1f} ms | "
-        f"mean step {tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms "
-        f"(CUDA events) | peak device memory "
+    log(f"  run 2 (sync debug mode 'warn'): {wall:.2f} s wall | prepare "
+        f"{tm['prepare']:.1f} ms | mean step {tm['step_mean']:.1f} ms | "
+        f"decode {tm['decode']:.1f} ms (CUDA events) | peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    same = np.array_equal(first, video)
+    log(f"  run 2 against run 1 (same Runner, seed 42): "
+        f"{'equal in every bit' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("a second run of the clip differs from the "
+                             "first")
+    log(f"  host synchronisations in run 2, {STEPS} steps "
+        f"(torch.cuda.set_sync_debug_mode('warn')): {sum(syncs.values())}")
+    for (where, msg), n in syncs.most_common():
+        log(f"    {n} at {where}: {msg}")
     log(f"  kernel launches in run 2: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    for name in unlaunched(launches):
+        raise AssertionError(f"the main path never launched {name}")
     if video.shape != (FRAMES, HEIGHT, WIDTH, 3):
         raise AssertionError(f"output shape {video.shape}")
     if not np.isfinite(video).all():
@@ -1275,6 +1278,26 @@ def phase_main_path():
         raise AssertionError("output is constant")
     window_determinism(runner)
     return launches, runner
+
+
+def host_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``, the mode
+    restored after: its result and the host synchronisations it made (each
+    keeps the host from running ahead of the card), by (file:line,
+    message)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, Counter(
+        (f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}",
+         str(w.message).split(" (Triggered")[0])
+        for w in caught if "called a synchronizing" in str(w.message))
 
 
 def accumulation_determinism(pose2vid, win, wts, runs: int = 20) -> None:
@@ -1460,9 +1483,8 @@ def phase_edit(runner):
         f"differ")
     del pasted_args, video, bk, vid, occ, card
     log(f"  kernel launches in edit run 1: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the edit path never launched {name}")
+    for name in unlaunched(launches):
+        raise AssertionError(f"the edit path never launched {name}")
 
     if len(out) != EDIT_FRAMES or any(
             f.shape != (*EDIT_SRC, 3) or f.dtype != np.uint8 for f in out):
@@ -1976,6 +1998,9 @@ def phase_decomp():
             widths.get(72) and widths.get(16)):
         raise AssertionError("the decomposition path did not launch the "
                              "flash kernel at d = 72 and d = 16")
+    for name in TRACK_ONLY:
+        if launches[name] <= 0:
+            raise AssertionError(f"the track run never launched {name}")
     masks, bboxes = res["masks"], res["bboxes"]
     from mimo_tpu_torch.decomp.pipeline import DecompConfig
     from mimo_tpu_torch.ops.connected_components import clean_mask
@@ -3000,9 +3025,8 @@ def phase_decomp_run(work):
             f"{tm['step_mean']:.1f} ms | decode {tm['decode']:.1f} ms (CUDA "
             f"events) | peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
             f" GiB; kernel launches {counts}")
-        for name, count in counts.items():
-            if count <= 0:
-                raise AssertionError(f"{argv[0]} never launched {name}")
+        for name in unlaunched(counts):
+            raise AssertionError(f"{argv[0]} never launched {name}")
         runners.clear()
         return Counter(counts), flash_widths()
 
@@ -3500,10 +3524,9 @@ def phase_multi():
         raise AssertionError("(a): two runs differ")
     log(f"  (a) second run equal in every bit to the first on both ranks")
     log(f"  (a) rank 0's kernel launches in run 2: {a['launches']}")
-    for name, count in a["launches"].items():
-        if count <= 0:
-            raise AssertionError(f"(a): the frame-parallel path never "
-                                 f"launched {name}")
+    for name in unlaunched(a["launches"]):
+        raise AssertionError(f"(a): the frame-parallel path never "
+                             f"launched {name}")
     b = [r[1] for r in ranks]
     log_run(f"(b) window DP + hybrid tail {DP_CLIP[0]}x{DP_CLIP[1]}x"
             f"{DP_CLIP[1]}, rank 0", b[0], 2)
@@ -3653,86 +3676,24 @@ def reset_counts():
     return counters
 
 
+# Hiera's row passes (ops/rows.py): wrappers of the tracker's path alone,
+# which no synthesis path launches
+TRACK_ONLY = ("bias_gelu", "bias_residual")
+
+
+def unlaunched(counts):
+    """The synthesis wrappers that ``counts`` ({name: launches}) shows
+    never launched."""
+    return [name for name, n in counts.items()
+            if n <= 0 and name not in TRACK_ONLY]
+
+
 def flash_widths():
     """The flash wrappers' launches since ``reset_counts``, by (wrapper
     name, head width)."""
     from mimo_tpu_torch.ops import flash_attention as FA
     return Counter({(fn.__name__, d): n for fn in FA.FLASH_WRAPPERS
                     for d, n in fn.widths.items()})
-
-
-# ---------------------------------------------------------------------------
-# phase 12: the bench command and the serving bench, as a user runs them
-# ---------------------------------------------------------------------------
-
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
-BENCH_NOTES = ("provisional phase-sum", "e2e run 0", "e2e run 1", "final")
-COMMAND_TIMEOUT = 600       # seconds a command of phase 12 may take
-
-
-def run_command(argv):
-    """``python3 <argv>`` from the repository's root in a subprocess; logs
-    its stderr ('#' lines) and stdout; returns (exit code, stdout lines,
-    stderr lines)."""
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, *argv], cwd=ROOT,
-                         capture_output=True, text=True,
-                         timeout=COMMAND_TIMEOUT)
-    err = res.stderr.splitlines()
-    for line in err + res.stdout.splitlines():
-        log(f"    {line}")
-    log(f"  `python3 {' '.join(argv)}`: exit {res.returncode}, "
-        f"{time.perf_counter() - t0:.1f} s wall")
-    return res.returncode, res.stdout.splitlines(), err
-
-
-def result_lines(out, keys):
-    """Every stdout line as one JSON object with exactly ``keys`` and a
-    value > 0."""
-    lines = [json.loads(line) for line in out]
-    for d in lines:
-        if set(d) != keys or not d["value"] > 0 or "torch" not in d["metric"]:
-            raise AssertionError(f"not a result line of the port: {d}")
-    return lines
-
-
-def phase_bench():
-    """Phase 12: ``python3 -m mimo_tpu_torch bench`` at its fixed workload
-    (24 frames 512x784, 30 steps, CFG 3.5), then ``python3 -m
-    mimo_tpu_torch.tools.bench_serving --clips 2``, each in a subprocess as a
-    user runs it. Returns the bench process's kernel launches and flash
-    launches by head width (read from its '#' lines)."""
-    log("== phase 12: the bench command and the serving bench (subprocesses)")
-    rc, out, err = run_command(["-m", "mimo_tpu_torch", "bench"])
-    if rc != 0:
-        raise AssertionError(f"the bench exited {rc}")
-    lines = result_lines(out, BENCH_KEYS)
-    notes = [m.group(1) for m in (re.search(r"emit \((.*)\):", line)
-                                  for line in err) if m]
-    if len(lines) != len(BENCH_NOTES) or tuple(notes) != BENCH_NOTES:
-        raise AssertionError(f"the bench printed {len(lines)} lines "
-                             f"({notes}), not {BENCH_NOTES}")
-    if not any("equal in every bit across the two runs" in line
-               for line in err):
-        raise AssertionError("the bench's two runs were not held to equal "
-                             "checksums")
-    tag = "kernel launches: "
-    launched = json.loads(next(line.split(tag, 1)[1] for line in err
-                               if tag in line))
-    log(f"  the bench's kernel launches: {launched['counts']}")
-    for name, count in launched["counts"].items():
-        if count <= 0:
-            raise AssertionError(f"the bench never launched {name}")
-    widths = Counter({(name, d): n for name, d, n in launched["widths"]})
-
-    rc, out, _ = run_command(["-m", "mimo_tpu_torch.tools.bench_serving",
-                              "--clips", "2"])
-    if rc != 0:
-        raise AssertionError(f"the serving bench exited {rc}")
-    (line,) = result_lines(out, BENCH_KEYS | {"per_clip_s"})
-    if len(line["per_clip_s"]) != 2:
-        raise AssertionError(f"the serving bench ran {line['per_clip_s']}")
-    return launched["counts"], widths
 
 
 @contextlib.contextmanager
@@ -3954,8 +3915,6 @@ def main() -> None:
         run_launches, run_widths = phase_decomp_run(work)
     torch.cuda.empty_cache()
     launches["frame-parallel"], fp_widths = phase_multi()
-    torch.cuda.empty_cache()
-    launches["bench"], bench_widths = phase_bench()
 
     def row(e, path, count):
         return {"name": e["name"], "route": e["route"],
@@ -3966,7 +3925,7 @@ def main() -> None:
                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                 "library": e["library"]}
 
-    log("== phase 13: the kernels' JSON line")
+    log("== phase 12: the kernels' JSON line")
     kernels = []
     for e in entries + ablation:
         kernels.append(row(e, e["path"], widths[e["width"]]
@@ -3995,8 +3954,6 @@ def main() -> None:
     kernels += path_rows("decomp-run", run_launches, run_widths)
     kernels += path_rows("frame-parallel", launches["frame-parallel"],
                          fp_widths)
-    # phase 12's bench process
-    kernels += path_rows("bench", launches["bench"], bench_widths)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (build "
         f"included)")
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,9 @@ python -m mimo_tpu_torch <command> ...
   edit      video character replacement with full compositing
   serve     gradio web app (if gradio is installed)
   decomp    in-the-wild video -> template extraction
-  bench     headline benchmark (frames/s of the 24-frame 512x784 clip)
 
-animate, edit, decomp and bench run on a CUDA device (decomp --cpu on
-the CPU).
+animate, edit and decomp run on a CUDA device (decomp --cpu on the
+CPU).
 """
 
 import sys
@@ -28,8 +27,6 @@ def main(argv=None):
         from mimo_tpu_torch.serving.app import main as m
     elif cmd == "decomp":
         from mimo_tpu_torch.decomp.factory import main as m
-    elif cmd == "bench":
-        from mimo_tpu_torch.bench import main as m
     else:
         print(f"unknown command: {cmd}\n{__doc__}", file=sys.stderr)
         raise SystemExit(2)

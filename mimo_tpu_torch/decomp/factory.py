@@ -64,7 +64,6 @@ from mimo_tpu_torch.decomp import smpl as SM
 from mimo_tpu_torch.decomp import vitpose as VP
 from mimo_tpu_torch.decomp.detector import PoseScoredDetector
 from mimo_tpu_torch.parallel.decomp import frame_parallel
-from mimo_tpu_torch.pipelines.pose2vid import PhaseClock
 from mimo_tpu_torch.utils import profiling
 from mimo_tpu_torch.weights import bridge
 
@@ -122,8 +121,8 @@ class TrackVideo:
 
     def __call__(self, frames, seed_mask, seed_frame, clip_id=None):
         self.clip_id += 1
-        rec = SAM2.TrackRecord(PhaseClock(self.tracker.device,
-                                          clip=self.clip_id))
+        rec = SAM2.TrackRecord(profiling.PhaseClock(self.tracker.device,
+                                                    clip=self.clip_id))
         clock = rec.clock
         self.tracker.record = rec
         try:

@@ -469,7 +469,7 @@ def hiera_passes() -> Dict[str, int]:
 
 class TrackRecord:
     """What one tracking call did, read after the call: the clip's phases
-    and host spans (``clock``, a ``pipelines.pose2vid.PhaseClock``, which
+    and host spans (``clock``, a ``utils.profiling.PhaseClock``, which
     the caller marks at "start", "encode" and "prompt"; the predictor marks
     "frame<i>" after each propagated frame and opens a ``track.masks`` span
     a direction), the prompt frame's decisions (``forward_sam_heads``'s
@@ -537,8 +537,9 @@ class TrackRecord:
         cached), ``prompt`` and each propagated frame's ``frame_ms`` on the
         device's timeline (ms), their mean, ``frames`` (propagated), the
         mean ``slots``, ``keys`` and ``ptr_tokens`` a frame attended,
-        ``clip``, ``spans`` (host), ``h2d_bytes`` / ``d2h_bytes`` and the
-        encode's ``HIERA_PASSES`` (0 where it was cached)."""
+        then ``clock.record()``'s ``clip``, ``spans`` (host) and
+        ``h2d_bytes`` / ``d2h_bytes``, and the encode's ``HIERA_PASSES``
+        (0 where it was cached)."""
         ms = self.clock.durations_ms()
         frame_ms = [v for k, v in ms.items() if k.startswith("frame")]
 
@@ -549,10 +550,7 @@ class TrackRecord:
                 "frame_ms": frame_ms, "frame_mean": mean(frame_ms),
                 "frames": len(frame_ms), "slots": mean(self.slots),
                 "keys": mean(self.keys), "ptr_tokens": mean(self.ptr_tokens),
-                "clip": self.clock.clip,
-                "spans": [dict(s) for s in self.clock.spans],
-                "h2d_bytes": self.clock.bytes["h2d"],
-                "d2h_bytes": self.clock.bytes["d2h"], **self.hiera}
+                **self.clock.record(), **self.hiera}
 
 
 def frame_step(p: Params, cfg: SAM2Config, feat: torch.Tensor,

@@ -5,7 +5,7 @@ Counterpart of ``mimo_tpu/entry/runner.py``: ``init_random_params``,
 frames go to the device once as uint8 and are resized and normalised there
 (``Runner.inputs``); the device runs ``pipelines.pose2vid.generate_host_loop``
 (``Runner.run``). ``Runner.clip`` opens a clip's span recorder
-(``pose2vid.PhaseClock``) for an entry call.
+(``profiling.PhaseClock``) for an entry call.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from mimo_tpu_torch.models import unet as U
 from mimo_tpu_torch.models import vae as V
 from mimo_tpu_torch.pipelines import pose2vid
 from mimo_tpu_torch.utils import frames as FU
+from mimo_tpu_torch.utils import profiling
 from mimo_tpu_torch.weights import bridge
 
 # a generation's static description and its device inputs (Runner.inputs)
@@ -84,7 +85,7 @@ class Runner:
     params: Dict[str, Any]
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
-    # the last clip's record (PhaseClock.timings): prepare, step_mean,
+    # the last clip's record (pose2vid.clip_timings): prepare, step_mean,
     # decode and step_ms (device, ms), steps, clip and spans (host),
     # h2d_bytes and d2h_bytes (the clip's copies between host and device)
     last_timings: Dict[str, Any] = field(default_factory=dict)
@@ -97,10 +98,10 @@ class Runner:
     frame_axis: Optional[str] = None
     pad_windows_to: int = 1
 
-    def clock(self) -> pose2vid.PhaseClock:
+    def clock(self) -> profiling.PhaseClock:
         """A span recorder for the next clip."""
         self.clip_id += 1
-        return pose2vid.PhaseClock(self.device, clip=self.clip_id)
+        return profiling.PhaseClock(self.device, clip=self.clip_id)
 
     @contextlib.contextmanager
     def clip(self, name: str):
@@ -110,10 +111,10 @@ class Runner:
         clock = self.clock()
         with clock.span(name):
             yield clock
-        self.last_timings = clock.timings()
+        self.last_timings = pose2vid.clip_timings(clock)
 
     def upload(self, frames: Sequence[np.ndarray],
-               clock: pose2vid.PhaseClock) -> torch.Tensor:
+               clock: profiling.PhaseClock) -> torch.Tensor:
         """Host frames of one shape as one uint8 (F, ...) tensor on the
         device (``FU.upload_frames``), counted in ``clock``."""
         out = FU.upload_frames(frames, self.device)
@@ -136,7 +137,7 @@ class Runner:
                width: int, height: int, steps: int, cfg_scale: float,
                seed: int, window_chunk: Optional[int] = None,
                interpolation_factor: int = 0,
-               clock: pose2vid.PhaseClock) -> Job:
+               clock: profiling.PhaseClock) -> Job:
         """A generation's device inputs, in the span ``entry.inputs``: the
         frames' uploads (host frames), the resizes to (height, width) and
         the normalisation on the device, the CLIP preprocess and the noise
@@ -174,7 +175,7 @@ class Runner:
                 interpolation_factor=interpolation_factor)
             return st, (ref, pose, bk, clip_px, noise.to(dt))
 
-    def run(self, job: Job, clock: pose2vid.PhaseClock) -> torch.Tensor:
+    def run(self, job: Job, clock: profiling.PhaseClock) -> torch.Tensor:
         """The pipeline (``generate_host_loop``) on ``inputs``' job: the
         (F', height, width, 3) video in [0, 1] on the device."""
         st, tensors = job
@@ -182,7 +183,7 @@ class Runner:
                                            clock=clock)
 
     def to_host(self, video: torch.Tensor,
-                clock: pose2vid.PhaseClock) -> np.ndarray:
+                clock: profiling.PhaseClock) -> np.ndarray:
         """The video as host float32, in the span ``entry.output`` after
         the one wait for the decode."""
         clock.durations_ms()
@@ -195,7 +196,7 @@ class Runner:
                  width: int, height: int, steps: int, cfg_scale: float,
                  seed: int, window_chunk: Optional[int] = None,
                  interpolation_factor: int = 0,
-                 clock: Optional[pose2vid.PhaseClock] = None) -> np.ndarray:
+                 clock: Optional[profiling.PhaseClock] = None) -> np.ndarray:
         """``inputs``, ``run`` and ``to_host`` in one call. Returns
         (F', height, width, 3) float32 in [0, 1]: F' = F, or
         (F-1)*interpolation_factor + 1 when the factor is >= 2.
@@ -212,5 +213,5 @@ class Runner:
                           clock=clock)
         video = self.to_host(self.run(job, clock), clock)
         if own:
-            self.last_timings = clock.timings()
+            self.last_timings = pose2vid.clip_timings(clock)
         return video

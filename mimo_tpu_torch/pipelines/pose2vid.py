@@ -37,10 +37,8 @@ Sharding over a ``parallel.ProcessMesh`` (one process a rank; the modes of
 
 from __future__ import annotations
 
-import contextlib
-import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,88 +98,18 @@ class Pose2VideoStatic:
         raise ValueError("a mesh needs mesh_axis or frame_axis")
 
 
-class PhaseClock:
-    """The span recorder of one clip: its device phases and its host spans.
-
-    Device phases: ``mark`` records a CUDA event on the device's timeline
-    when it runs on CUDA, the host clock otherwise; ``durations_ms`` turns
-    the marks into phases and, the first time after the last mark, waits
-    for that mark once. Recording an event does not synchronise.
-
-    Host spans: ``span(name)`` opens a profiler range of that name
-    (``utils.profiling.annotate``), so a trace of the call names the host's
-    work by it, and records ``{"name", "parent", "clip", "start", "end"}``
-    in ``spans``: the enclosing span's name (None for the root), the clip's
-    id and the host clock in ms from the clock's creation. A span never
-    synchronises.
-
-    Copies: ``copied(direction, nbytes)`` counts the bytes the clip's host
-    arrays put on the device ("h2d") and its device tensors brought back as
-    host arrays ("d2h")."""
-
-    def __init__(self, device: torch.device, clip: int = 0):
-        self.cuda = torch.device(device).type == "cuda"
-        self.clip = clip
-        self.marks = []
-        self.spans: List[Dict[str, Any]] = []
-        self._open: List[str] = []
-        self._t0 = time.perf_counter()
-        self._durations: Optional[Dict[str, float]] = None
-        self.bytes = {"h2d": 0, "d2h": 0}
-
-    def copied(self, direction: str, nbytes: int) -> None:
-        self.bytes[direction] += int(nbytes)
-
-    def mark(self, name: str) -> None:
-        self._durations = None
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def durations_ms(self) -> Dict[str, float]:
-        """{phase: ms} from each mark to the next."""
-        if self._durations is None:
-            if self.cuda:
-                self.marks[-1][1].synchronize()
-            self._durations = {
-                name: (a.elapsed_time(b) if self.cuda else (b - a) * 1e3)
-                for (_, a), (name, b) in zip(self.marks, self.marks[1:])}
-        return dict(self._durations)
-
-    @contextlib.contextmanager
-    def span(self, name: str):
-        rec = {"name": name, "parent": self._open[-1] if self._open else None,
-               "clip": self.clip, "start": self._ms(), "end": None}
-        self.spans.append(rec)
-        self._open.append(name)
-        try:
-            with profiling.annotate(name):
-                yield
-        finally:
-            self._open.pop()
-            rec["end"] = self._ms()
-
-    def _ms(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e3
-
-    def timings(self) -> Dict[str, Any]:
-        """The clip's record, as ``Runner.last_timings`` holds it, from the
-        marks of ``generate_host_loop``: ``prepare``, ``step_mean``,
-        ``decode`` and ``step_ms`` (each step) in ms on the device's
-        timeline, ``steps``, ``clip``, ``spans`` (host), and ``h2d_bytes``
-        / ``d2h_bytes`` (``copied``)."""
-        ms = self.durations_ms()
-        step_ms = [v for k, v in ms.items() if k.startswith("step")]
-        return {"prepare": ms["prepare"],
-                "step_mean": sum(step_ms) / len(step_ms),
-                "decode": ms["decode"], "steps": len(step_ms),
-                "step_ms": step_ms, "clip": self.clip,
-                "spans": [dict(s) for s in self.spans],
-                "h2d_bytes": self.bytes["h2d"],
-                "d2h_bytes": self.bytes["d2h"]}
+def clip_timings(clock: profiling.PhaseClock) -> Dict[str, Any]:
+    """The clip's record, as ``Runner.last_timings`` holds it, from the
+    marks of ``generate_host_loop``: ``prepare``, ``step_mean``, ``decode``
+    and ``step_ms`` (each step) in ms on the device's timeline, ``steps``,
+    then ``clock.record()``'s ``clip``, ``spans`` (host) and ``h2d_bytes``
+    / ``d2h_bytes``."""
+    ms = clock.durations_ms()
+    step_ms = [v for k, v in ms.items() if k.startswith("step")]
+    return {"prepare": ms["prepare"],
+            "step_mean": sum(step_ms) / len(step_ms),
+            "decode": ms["decode"], "steps": len(step_ms),
+            "step_ms": step_ms, **clock.record()}
 
 
 def chunked_apply(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -522,7 +450,8 @@ def generate_host_loop(params: Params, st: Pose2VideoStatic,
                        ref_image: torch.Tensor, pose_video: torch.Tensor,
                        bk_video: torch.Tensor, clip_pixels: torch.Tensor,
                        noise: torch.Tensor,
-                       clock: Optional[PhaseClock] = None) -> torch.Tensor:
+                       clock: Optional[profiling.PhaseClock] = None
+                       ) -> torch.Tensor:
     """Full generation: conditioning → DDIM loop on the host → decode.
 
     noise: (F, h, w, 4) standard normal (the caller owns the generator;

@@ -406,7 +406,7 @@ def sdc_rects(sdc: torch.Tensor, clean: bool = False,
               clock=None) -> List[Tuple[int, int, int, int]]:
     """``mask_bbox`` of each of ``sdc_masks``' masks, from its rows' and
     columns' reductions on the device: one copy of F x 4 integers comes
-    back, counted in ``clock`` (a ``PhaseClock``) when given."""
+    back, counted in ``clock`` (a ``profiling.PhaseClock``) when given."""
     mask = sdc_masks(sdc, clean)
     rows, cols = mask.any(2), mask.any(1)
     (y0, y1), (x0, x1) = _ends(rows), _ends(cols)

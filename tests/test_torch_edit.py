@@ -38,8 +38,8 @@ from mimo_tpu_torch import config as C
 from mimo_tpu_torch.entry import edit as E
 from mimo_tpu_torch.entry import runner as R
 from mimo_tpu_torch.entry import template as T
-from mimo_tpu_torch.pipelines import pose2vid as P2V
 from mimo_tpu_torch.utils import frames as FU
+from mimo_tpu_torch.utils import profiling as PR
 from tests.test_pipeline import tiny_params
 from tests.test_torch_helpers import bridge_params, set_fp32_matmuls
 
@@ -208,7 +208,7 @@ class StubRunner:
 
     @contextlib.contextmanager
     def clip(self, name):
-        yield P2V.PhaseClock(torch.device("cpu"))
+        yield PR.PhaseClock(torch.device("cpu"))
 
     def inputs(self, ref, pose, bk, clock=None, **kw):
         def frames(x):

@@ -179,8 +179,7 @@ def test_dispatcher_help_and_unknown(capsys):
     ("animate", "mimo_tpu_torch.entry.animate"),
     ("edit", "mimo_tpu_torch.entry.edit"),
     ("serve", "mimo_tpu_torch.serving.app"),
-    ("decomp", "mimo_tpu_torch.decomp.factory"),
-    ("bench", "mimo_tpu_torch.bench")])
+    ("decomp", "mimo_tpu_torch.decomp.factory")])
 def test_dispatcher_routes(cmd, module, monkeypatch):
     import importlib
     seen = []

@@ -30,8 +30,8 @@ from mimo_tpu_torch.entry import animate as AN
 from mimo_tpu_torch.entry import edit as E
 from mimo_tpu_torch.entry import runner as R
 from mimo_tpu_torch.entry import template as T
-from mimo_tpu_torch.pipelines import pose2vid as P2V
 from mimo_tpu_torch.utils import frames as FU
+from mimo_tpu_torch.utils import profiling as PR
 from mimo_tpu_torch.utils import video_io as VIO
 from tests.test_torch_edit import (StubRunner, _assert_same, _clip,
                                    _edit_template, _ref_image,
@@ -57,7 +57,7 @@ def _bare_runner():
 
 
 def _clock():
-    return P2V.PhaseClock(CPU)
+    return PR.PhaseClock(CPU)
 
 
 def _clips():

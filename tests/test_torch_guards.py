@@ -1,7 +1,8 @@
-"""Guards of the port: it imports neither JAX nor mimo_tpu, and its kernel
+"""Guards of the port: it imports neither JAX nor mimo_tpu, its kernel
 build raises a clear error where there is no nvcc instead of handing back
-a fallback."""
+a fallback, and its kernel wrappers count their launches."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -22,7 +23,7 @@ SLICE_MODULES = [
     "mimo_tpu_torch.pipelines.pose2vid", "mimo_tpu_torch.utils.frames",
     "mimo_tpu_torch.utils.video_io", "mimo_tpu_torch.entry.template",
     "mimo_tpu_torch.entry.runner", "mimo_tpu_torch.entry.animate",
-    "mimo_tpu_torch.entry.profile", "mimo_tpu_torch.pipelines.interp",
+    "mimo_tpu_torch.pipelines.interp",
     "mimo_tpu_torch.tools.ablate_flash", "mimo_tpu_torch.tools.time_tattn_core",
     "mimo_tpu_torch.tools.time_norms", "mimo_tpu_torch.tools.timing",
     "mimo_tpu_torch.tools.time_flash_wide",
@@ -44,8 +45,7 @@ SLICE_MODULES = [
     "mimo_tpu_torch.decomp.depth_anything", "mimo_tpu_torch.decomp.occlusion",
     "mimo_tpu_torch.parallel", "mimo_tpu_torch.parallel.mesh",
     "mimo_tpu_torch.parallel.comm", "mimo_tpu_torch.parallel.decomp",
-    "mimo_tpu_torch.entry.graft", "mimo_tpu_torch.bench",
-    "mimo_tpu_torch.tools.bench_serving", "mimo_tpu_torch.ops.rows",
+    "mimo_tpu_torch.entry.graft", "mimo_tpu_torch.ops.rows",
 ]
 
 
@@ -144,3 +144,25 @@ def test_graft_entry_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     fn, args = graft.entry(device="cpu")
     out = fn(*args)
     assert out.shape == (4, 4, 32, 32, 4) and torch.isfinite(out).all()
+
+
+def test_kernel_wrappers_count_their_launches():
+    """``ops.kernel_wrappers`` lists the main path's thirteen wrappers, each
+    with its launch count; ``launch_counts`` reads them by name, and the
+    three flash wrappers' (flash_attention_wide among them) by width."""
+    from mimo_tpu_torch import ops
+    from mimo_tpu_torch.ops import flash_attention as FA
+    wrappers = ops.kernel_wrappers()
+    names = [fn.__name__ for fn in wrappers]
+    assert len(set(names)) == len(wrappers) == 13
+    assert all(isinstance(fn.launches, int) for fn in wrappers)
+    assert FA.FLASH_WRAPPERS == (FA.flash_attention_nt,
+                                 FA.flash_attention_nt_bank,
+                                 FA.flash_attention_wide)
+    assert set(FA.FLASH_WRAPPERS) <= set(wrappers)
+    got = ops.launch_counts()
+    assert got["counts"] == {fn.__name__: fn.launches for fn in wrappers}
+    assert got["widths"] == [
+        [fn.__name__, d, n] for fn in FA.FLASH_WRAPPERS
+        for d, n in sorted(fn.widths.items())]
+    json.dumps(got)
